@@ -3,13 +3,16 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from mm2d3d_tpu_torch/csrc, holds each
-against its plain PyTorch version at the flagship shapes, drives the eval
-slice (flagship configuration, bf16, batch 8) through the launch-counted
-kernels, and compares the card's fp32 forward with the CPU's.  Prints, in
-its last lines, the card (nvidia-smi name and power limit), one JSON line of
-kernel results, and one JSON line {"ok": true, "device": {...}}.  Any failed
-phase raises, and the script exits non-zero without the final line; it also
-refuses to run without a CUDA device.  Imports nothing of JAX.
+against its plain PyTorch version at the flagship shapes (phase 3), drives
+the eval slice (flagship configuration, bf16, batch 8) through the
+launch-counted kernels (phase 4), compares the card's fp32 forward with the
+CPU's (phase 5), drives the train slice (bf16, batch 8 per domain: launch
+counts, timing, a 12-step loss trajectory; phase 6), and compares the card's
+fp32 train step with the CPU's (phase 7).  Prints, in its last lines, the
+card (nvidia-smi name and power limit), one JSON line of kernel results, and
+one JSON line {"ok": true, "device": {...}}.  Any failed phase raises, and
+the script exits non-zero without the final line; it also refuses to run
+without a CUDA device.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -27,8 +30,9 @@ BATCH = 8
 FLAGSHIP_BATCH = dict(height=225, width=400, n_points=8192, num_classes=6,
                       full_scale=4096)
 K1_REL_TOL = 1e-4  # max |kernel - plain| <= 1e-4 * max |plain|
-LOGIT_REL_TOL = 1e-3  # card vs CPU, fp32 forward
+LOGIT_REL_TOL = 1e-3  # card vs CPU, fp32 forward and train step
 TIE_GAP = 1e-3
+COMPARE_BATCH = 2  # scans per domain of phase 7's card-vs-CPU train step
 SLEEP_CYCLES = 100_000_000  # ~50-300 ms of SM clock: longer than the queued calls' dispatch
 
 
@@ -226,6 +230,72 @@ def check_k1(res: Results, dev) -> None:
                     ms, plain)
 
 
+def check_k2(res: Results, dev) -> None:
+    """K2, bf16 and fp32, for every call form the train step makes: at level
+    0 the input conv, the encoder's three tiers and the decoder concat; the
+    strided conv L0 -> L1; at level 5 the decoder concat in each tier; the
+    strided conv L5 -> L6.  The mid and heavy tiers take the gradient at
+    their compacted rows, as the adjoint does.  Each form runs twice and
+    must give the same bits."""
+    from mm2d3d_tpu_torch.ops.kernels.bandmm_dw import slot_conv_dw, slot_conv_dw_ref
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    _, hier = build_topology(flagship_batch(0, BATCH, dev), 4096, 7)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def rows(x, idx):
+        return torch.cat([x, x.new_zeros((1, x.shape[1]))])[idx.long()]
+
+    def subm_forms(l, ci, co, name, every_tier):
+        lev = hier.levels[l]
+        v = lev.capacity
+        x = torch.cat([rnd(v, ci), torch.zeros((1, ci), device=dev)])
+        g = rnd(v, co)
+        xm = torch.where(lev.valid[:, None], x[:v], 0)
+        forms = [(f"{name} tier1+center H={lev.slot_src.shape[0]}",
+                  (xm, x[lev.slot_src.long()], lev.slot_tap, g, 27))]
+        if every_tier and lev.slot_srcm is not None:
+            forms.append((f"{name} mid tier H={lev.slot_srcm.shape[0]}",
+                          (None, x[lev.slot_srcm.long()], lev.slot_tapm,
+                           rows(g, lev.slot_idxm), 27)))
+        if every_tier and lev.slot_src2 is not None:
+            forms.append((f"{name} heavy tier H={lev.slot_src2.shape[0]}",
+                          (None, x[lev.slot_src2.long()], lev.slot_tap2,
+                           rows(g, lev.slot_idx), 27)))
+        return forms
+
+    def strided_form(l, ci, co):
+        off_id = hier.transitions[l].off_id
+        return (f"down L{l}->L{l + 1} K=8 H=1 {ci}->{co}",
+                (None, rnd(1, off_id.shape[0], ci), off_id[None].contiguous(),
+                 rnd(off_id.shape[0], co), 8))
+
+    forms = (subm_forms(0, 3, 16, "input conv Ci=3", False)
+             + subm_forms(0, 16, 16, "enc L0", True)
+             + subm_forms(0, 32, 16, "dec L0 (concat)", False)
+             + [strided_form(0, 16, 32)]
+             + subm_forms(5, 192, 96, "dec L5 (concat)", True)
+             + [strided_form(5, 96, 112)])
+    for dt in (torch.bfloat16, torch.float32):
+        for name, (xm, xs, tap, g, k) in forms:
+            args = (None if xm is None else xm.to(dt).contiguous(),
+                    xs.to(dt).contiguous(), tap, g.to(dt).contiguous())
+            out = slot_conv_dw(*args, k_taps=k)
+            again = slot_conv_dw(*args, k_taps=k)
+            if not torch.equal(out, again):
+                raise AssertionError(f"K2 {name} {dt}: two calls differ")
+            ref = slot_conv_dw_ref(*args, k_taps=k)
+            err = float((out - ref).abs().max())
+            tol = K1_REL_TOL * float(ref.abs().max())
+            ms = cuda_ms(lambda: slot_conv_dw(*args, k_taps=k))
+            plain = cuda_ms(lambda: slot_conv_dw_ref(*args, k_taps=k), reps=10)
+            res.add("bandmm_dw", f"{name} {str(dt)[6:]} V={xs.shape[1]}", err,
+                    tol, ms, plain)
+
+
 # --------------------------------------------------------------------------
 # phase 4: the slice, bf16, batch 8, through the counted kernels
 # --------------------------------------------------------------------------
@@ -316,16 +386,10 @@ def run_slice(dev):
 # phase 5: card vs CPU, fp32, batch 2
 # --------------------------------------------------------------------------
 
-def compare_card_cpu(dev) -> None:
-    from mm2d3d_tpu_torch.flagship import flagship_task
+def compare_topology(batch, dev) -> int:
+    """Build the topology of a CPU batch on the card and on the CPU; every
+    table must be identical.  Returns the number of tables."""
     from mm2d3d_tpu_torch.train.batch import build_topology
-
-    tasks = {}
-    for d in (dev, torch.device("cpu")):
-        t = flagship_task(compute_dtype=torch.float32, device=d)
-        t.init_params(torch.Generator().manual_seed(1))
-        tasks[d.type] = t
-    batch = flagship_batch(5, 2, "cpu")
 
     (g_gpu, h_gpu) = build_topology(batch.to(dev), 4096, 7)
     (g_cpu, h_cpu) = build_topology(batch, 4096, 7)
@@ -337,7 +401,20 @@ def compare_card_cpu(dev) -> None:
                 if not torch.equal(x.cpu(), getattr(b, name)):
                     raise AssertionError(f"topology table {name} differs")
                 n_tables += 1
-    log(f"card vs CPU: {n_tables} topology tables identical")
+    return n_tables
+
+
+def compare_card_cpu(dev) -> None:
+    from mm2d3d_tpu_torch.flagship import flagship_task
+
+    tasks = {}
+    for d in (dev, torch.device("cpu")):
+        t = flagship_task(compute_dtype=torch.float32, device=d)
+        t.init_params(torch.Generator().manual_seed(1))
+        tasks[d.type] = t
+    batch = flagship_batch(5, 2, "cpu")
+
+    log(f"card vs CPU: {compare_topology(batch, dev)} topology tables identical")
 
     t0 = time.perf_counter()
     out_gpu = tasks["cuda"].forward(batch.to(dev))
@@ -385,6 +462,170 @@ def compare_card_cpu(dev) -> None:
         "near-tie points left out), losses agree")
 
 
+# --------------------------------------------------------------------------
+# phase 6: the train slice, bf16, batch 8 per domain, through the kernels
+# --------------------------------------------------------------------------
+
+TRAIN_STEPS = 3  # counted steps
+TRAIN_TIMING = (3, 5)  # samples x steps
+TRAJECTORY_STEPS = 12
+
+
+def expected_train_launches(hiers) -> dict:
+    """Kernel launches of one train step, from the two domains' hierarchies:
+    per domain, K1 twice per eval-forward launch (forward and input
+    gradient), K2 once per eval-forward K1 launch (weight gradient), K3 per
+    topology and K4 per encoder as in the forward (the pool's backward is
+    PyTorch's)."""
+    out = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0}
+    for hier in hiers:
+        ev = expected_launches(hier)
+        out["bandmm"] += 2 * ev["bandmm"]
+        out["bandmm_dw"] += ev["bandmm"]
+        out["propagate"] += ev["propagate"]
+        out["maxpool"] += ev["maxpool"]
+    return out
+
+
+def check_train_logs(logs) -> None:
+    for name, t in logs.items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"non-finite {name}: {float(t)}")
+    for name in ("train/nbr_slot_overflow", "train/voxel_overflow_levels"):
+        if float(logs[name]) != 0:
+            raise AssertionError(f"{name} = {float(logs[name])}")
+
+
+def run_train(dev):
+    from mm2d3d_tpu_torch.flagship import flagship_task
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    task = flagship_task(device=dev)
+    task.init_params(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src, trg = flagship_batch(10, BATCH, dev), flagship_batch(11, BATCH, dev)
+    for _ in range(2):  # warm-up: first launches, cuDNN plans, optimizer state
+        check_train_logs(task.train_step(src, trg, gen))
+    torch.cuda.synchronize()
+
+    kernels.reset_counts()
+    for _ in range(TRAIN_STEPS):
+        logs = task.train_step(src, trg, gen)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    check_train_logs(logs)
+    hiers = [build_topology(b, 4096, 7)[1] for b in (src, trg)]
+    per_step = expected_train_launches(hiers)
+    for name, n in per_step.items():
+        if launches[name] != TRAIN_STEPS * n:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches, expected {TRAIN_STEPS} x {n}")
+    log(f"launch counts over {TRAIN_STEPS} train steps: {launches} "
+        f"(per step {per_step})")
+
+    torch.cuda.reset_peak_memory_stats()
+    samples = []
+    n_samples, n_steps = TRAIN_TIMING
+    for _ in range(n_samples):
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            logs = task.train_step(src, trg, gen)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) / n_steps)
+    check_train_logs(logs)
+    ms = statistics.median(samples) * 1e3
+    scans = 2 * BATCH
+    log(f"train step bf16 batch {BATCH} per domain: {ms:.2f} ms/step (median of "
+        f"{n_samples} x {n_steps}, band {min(samples) * 1e3:.2f}-"
+        f"{max(samples) * 1e3:.2f}), {scans * 1e3 / ms:.1f} scans/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # a fresh task over two fixed pairs, as tools/check_flagship_learning.py
+    task = flagship_task(device=dev)
+    task.init_params(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pairs = [(flagship_batch(0, BATCH, dev), flagship_batch(1, BATCH, dev)),
+             (flagship_batch(2, BATCH, dev), flagship_batch(3, BATCH, dev))]
+    losses = []
+    for i in range(TRAJECTORY_STEPS):
+        logs = task.train_step(*pairs[i % 2], gen)
+        check_train_logs(logs)
+        losses.append(float(logs["train/loss_total"]))
+    log("trajectory train/loss_total: " + ", ".join(f"{x:.4f}" for x in losses))
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"loss did not fall: first {losses[0]}, "
+                             f"mean of last 3 {statistics.mean(losses[-3:])}")
+    return launches, ms
+
+
+# --------------------------------------------------------------------------
+# phase 7: card vs CPU, fp32, one train step at batch 2 per domain
+# --------------------------------------------------------------------------
+
+def compare_train_card_cpu(dev) -> None:
+    """One fp32 train step on the card and on the CPU from the same weights
+    and batches, dropout off.  Gradients are held per leaf against the
+    largest CPU gradient of their branch, not the leaf's own maximum: fp32
+    rounding tips a few ReLU and max-pool decisions, and one tipped pixel
+    moves a deep leaf (a 2D layer4 weight sums over ~100 positions per
+    scan) by a few percent of its own, small, maximum.  The CPU alone does
+    the same under a 1e-7 perturbation of its input image (PERF.md)."""
+    from mm2d3d_tpu_torch.flagship import flagship_task
+
+    tasks = {}
+    for d in (dev, torch.device("cpu")):
+        t = flagship_task(compute_dtype=torch.float32, device=d)
+        t.init_params(torch.Generator().manual_seed(3))
+        for enc in (t.model2d.rgb_backbone, t.model2d.depth_backbone):
+            enc.dropout_rate = 0.0
+        tasks[d.type] = t
+    src, trg = (flagship_batch(s, COMPARE_BATCH, "cpu") for s in (12, 13))
+    n_tables = sum(compare_topology(b, dev) for b in (src, trg))
+    log(f"card vs CPU: {n_tables} topology tables identical (both domains)")
+
+    logs_gpu = tasks["cuda"].train_step(src.to(dev), trg.to(dev),
+                                        torch.Generator(device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs_cpu = tasks["cpu"].train_step(src, trg, torch.Generator())
+    log(f"fp32 train step batch {COMPARE_BATCH} per domain on the CPU: "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+    for name, b in logs_cpu.items():
+        a = float(logs_gpu[name])
+        if abs(a - float(b)) > LOGIT_REL_TOL * abs(float(b)):
+            raise AssertionError(f"{name}: card {a} vs CPU {float(b)}")
+    log("card vs CPU: every train log within 1e-3 relative")
+
+    worst, own = [], []  # (|card - CPU| / scale, branch, leaf, kind)
+    for branch in ("model2d", "model3d"):
+        ours = dict(getattr(tasks["cuda"], branch).named_parameters())
+        grads = dict(getattr(tasks["cpu"], branch).named_parameters())
+        top = max(float(p.grad.abs().max()) for p in grads.values())
+        for name, p in grads.items():
+            err = float((ours[name].grad.cpu() - p.grad).abs().max())
+            worst.append((err / top, branch, name, "grad"))
+            own.append((err / max(float(p.grad.abs().max()), 1e-30), branch, name,
+                        "grad"))
+        bufs = dict(getattr(tasks["cuda"], branch).named_buffers())
+        for name, ref in getattr(tasks["cpu"], branch).named_buffers():
+            err = float((bufs[name].cpu() - ref).abs().max())
+            worst.append((err / max(float(ref.abs().max()), 1e-30), branch, name,
+                          "stat"))
+    worst.sort(reverse=True)
+    own.sort(reverse=True)
+    log("card vs CPU, worst leaves (gradients: |card - CPU| / max|CPU gradient "
+        "of the branch|; statistics: / max|CPU leaf|): " + "; ".join(
+            f"{b}.{n} {k} {e:.2e}" for e, b, n, k in worst[:5]))
+    log("  for information, gradients against their own leaf's maximum: "
+        + "; ".join(f"{b}.{n} {e:.2e}" for e, b, n, _ in own[:3]))
+    if worst[0][0] > LOGIT_REL_TOL:
+        e, b, n, k = worst[0]
+        raise AssertionError(f"{b}.{n} {k}: {e} > {LOGIT_REL_TOL}")
+    log(f"card vs CPU: {len(own)} gradient leaves and "
+        f"{len(worst) - len(own)} running statistics within 1e-3")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -399,6 +640,7 @@ def main() -> int:
     check_k3(res, dev)
     check_k4(res, dev)
     check_k1(res, dev)
+    check_k2(res, dev)
 
     log("phase 4: slice, bf16, batch 8")
     launches, slice_ms = run_slice(dev)
@@ -406,19 +648,33 @@ def main() -> int:
     log("phase 5: card vs CPU, fp32, batch 2")
     compare_card_cpu(dev)
 
+    log(f"phase 6: train slice, bf16, batch {BATCH} per domain")
+    train_launches, train_ms = run_train(dev)
+
+    log(f"phase 7: card vs CPU, fp32, one train step, batch {COMPARE_BATCH} per domain")
+    t0 = time.perf_counter()
+    compare_train_card_cpu(dev)
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
     from mm2d3d_tpu_torch.ops import kernels
 
     main_case = {"propagate": "L0 ", "maxpool": f"({BATCH}, 240, 400, 64) float32",
-                 "bandmm": "enc L0 tier1+center H=3 bfloat16"}
+                 "bandmm": "enc L0 tier1+center H=3 bfloat16",
+                 "bandmm_dw": "enc L0 tier1+center H=3 bfloat16"}
     rows = []
     for name, k in kernels.all_kernels().items():
         case = next(c for c in res.cases if c[0] == name and c[1].startswith(main_case[name]))
+        # K2 runs on the train path only; the others' counts are the eval
+        # forward's (phase 4), their train counts are checked in phase 6
+        n = train_launches[name] if name == "bandmm_dw" else launches[name]
         rows.append({
             "name": name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": launches[name],
+            "replaces": k.replaces, "launches": n,
             "max_abs_err": res.max_err(name), "ms": case[4], "plain_ms": case[5],
         })
     log(f"slice: {slice_ms:.2f} ms/batch of {BATCH}, {BATCH * 1e3 / slice_ms:.1f} scans/s")
+    log(f"train: {train_ms:.2f} ms/step of 2 x {BATCH}, "
+        f"{2 * BATCH * 1e3 / train_ms:.1f} scans/s")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,17 +1,19 @@
-"""Dual-encoder 2D U-Net (RGB + sparse depth) with 2D -> 3D lifting, eval
-forward (port of `mm2d3d_tpu/models/net2d.py`, `with_features=False`).
+"""Dual-encoder 2D U-Net (RGB + sparse depth) with 2D -> 3D lifting
+(port of `mm2d3d_tpu/models/net2d.py`, `with_features=False`).
 
 Public layout is the JAX package's: images (B, H, W, C), logits
 (B, H, W, nc) and lifted (B, N, nc).  Inside, tensors are NCHW in
 `torch.channels_last` memory.  The head keeps `dec_conv_stage1`, `head_conv`
 and `aux_conv` as separate parameters and composes them in forward
 (`w12 = dec_k @ k_heads`), as the JAX package does, then crops the padding
-and applies the 5x5 `count_include_pad` average pool.
+and applies the 5x5 `count_include_pad` average pool.  Train and eval mode
+follow `nn.Module.train()`; in train mode both encoders' dropout draws from
+the generator passed to `forward`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -86,18 +88,20 @@ class Net2DSeg(nn.Module):
         return self.stem_rgb.bn(out[:, :64]), self.stem_depth.bn(out[:, 64:])
 
     def forward(self, img: torch.Tensor, depth: torch.Tensor,
-                img_indices: torch.Tensor, point_mask: torch.Tensor
+                img_indices: torch.Tensor, point_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
                 ) -> Tuple[Dict[str, torch.Tensor], None, Dict[str, torch.Tensor]]:
         """img (B, H, W, 3), depth (B, H, W, 1) float; img_indices (B, N, 2)
-        int32; point_mask (B, N) bool."""
+        int32; point_mask (B, N) bool; `generator` (on the device) feeds the
+        dropout in train mode."""
         h, w = img.shape[1], img.shape[2]
         pad_h, pad_w = (-h) % 16, (-w) % 16
         img = F.pad(img.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h))
         depth = F.pad(depth.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h))
 
         rgb_stem, depth_stem = self._stems(img, depth)
-        rgb = self.rgb_backbone(rgb_stem)
-        dep = self.depth_backbone(depth_stem)
+        rgb = self.rgb_backbone(rgb_stem, generator)
+        dep = self.depth_backbone(depth_stem, generator)
 
         x = self.up5(torch.cat([dep[4], rgb[4]], 1))
         x = self.fuse4(torch.cat([dep[3], x, rgb[3]], 1))
@@ -116,7 +120,10 @@ class Net2DSeg(nn.Module):
         b12 = self.dec_conv_stage1.bias @ k_heads
         cd = self.compute_dtype
         y = conv2d(x_cat, w12, None, 1, 1, cd).float() + b12[None, :, None, None]
-        y = F.avg_pool2d(y[:, :, :h, :w], 5, stride=1, padding=2,
+        # pooled in NCHW layout: CUDA's avg_pool2d backward gives wrong
+        # gradients for channels_last input (torch 2.11 on an H100, held
+        # against the CPU's in tests/test_torch_kernels_cuda.py)
+        y = F.avg_pool2d(y[:, :, :h, :w].contiguous(), 5, stride=1, padding=2,
                          count_include_pad=True)
         y = y.permute(0, 2, 3, 1)  # (B, h, w, 2nc)
 

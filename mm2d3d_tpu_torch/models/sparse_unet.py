@@ -1,10 +1,12 @@
-"""SCN-style sparse 3D U-Net and Net3DSeg, eval forward
+"""SCN-style sparse 3D U-Net and Net3DSeg
 (port of `mm2d3d_tpu/models/sparse_unet.py`).
 
 Module and parameter names follow the flax tree (`net_3d.unet.enc_0_0.conv`,
 `down_bn_1`, ...) so `models.convert.from_flax` is a mechanical map.  Sparse
 kernels keep the JAX layout (K, Cin, Cout).  Convolutions run in
-`compute_dtype` and return fp32; batch norms use their running statistics.
+`compute_dtype` and return fp32.  Batch norms take the statistics of the
+valid rows in train mode (`nn.Module.train()`) and their running statistics
+in eval mode.
 """
 
 from __future__ import annotations
@@ -15,13 +17,17 @@ import torch
 from torch import nn
 
 from ..ops.hierarchy import GridLevel, Hierarchy, LevelTransition
-from ..ops.spconv import down_conv2, subm_conv3, up_conv2
+from ..ops.spconv import down_conv2, masked_batch_norm_stats, subm_conv3, up_conv2
 from ..ops.voxelize import VoxelGrid, pool_features, unpool_features
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over active sites (eps 1e-4), eval form: running stats.
-    Returns the input's dtype, as the flax module does."""
+    """BatchNorm over the valid rows only (eps 1e-4).  Train mode: the
+    biased mean and variance of the valid rows, differentiable, and the
+    running statistics move to 0.9 old + 0.1 batch; eval mode: the running
+    statistics.  Returns the input's dtype, as the flax module does."""
+
+    momentum = 0.9  # flax's: running = 0.9 old + 0.1 batch
 
     def __init__(self, c: int, eps: float = 1e-4):
         super().__init__()
@@ -31,8 +37,15 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean, var = masked_batch_norm_stats(x, valid)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x.float() - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
 
 
@@ -77,7 +90,7 @@ class VGGBlock(nn.Module):
         self.conv = SubmConv(cin, cout, compute_dtype)
 
     def forward(self, x: torch.Tensor, level: GridLevel) -> torch.Tensor:
-        return self.conv(torch.relu(self.bn(x)), level)
+        return self.conv(torch.relu(self.bn(x, level.valid)), level)
 
 
 class SparseUNet(nn.Module):
@@ -111,14 +124,14 @@ class SparseUNet(nn.Module):
         enc = []
         for l in range(n):
             if l > 0:
-                y = torch.relu(m[f"down_bn_{l}"](x))
+                y = torch.relu(m[f"down_bn_{l}"](x, hier.levels[l - 1].valid))
                 x = m[f"down_{l}"](y, hier.transitions[l - 1])
             for r in range(self.reps):
                 x = m[f"enc_{l}_{r}"](x, hier.levels[l])
             enc.append(x)
         x = enc[-1]
         for l in range(n - 2, -1, -1):
-            y = torch.relu(m[f"up_bn_{l}"](x))
+            y = torch.relu(m[f"up_bn_{l}"](x, hier.levels[l + 1].valid))
             up = m[f"up_{l}"](y, hier.transitions[l])
             x = torch.cat([enc[l], up], dim=-1)
             for r in range(self.reps):
@@ -141,7 +154,7 @@ class UNetSCN3D(nn.Module):
     def forward(self, voxel_feats: torch.Tensor, hier: Hierarchy) -> torch.Tensor:
         x = self.input_conv(voxel_feats, hier.levels[0])
         x = self.unet(x, hier)
-        return torch.relu(self.out_bn(x))
+        return torch.relu(self.out_bn(x, hier.levels[0].valid))
 
 
 class Net3DSeg(nn.Module):

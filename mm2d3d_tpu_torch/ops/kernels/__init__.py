@@ -18,6 +18,7 @@ raises.  There is no fallback from a failed build or launch.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -138,7 +139,7 @@ def register(kernel: Kernel) -> Kernel:
 
 def all_kernels() -> Dict[str, Kernel]:
     # importing the kernel modules registers them
-    from . import bandmm, maxpool, propagate  # noqa: F401
+    from . import bandmm, bandmm_dw, maxpool, propagate  # noqa: F401
 
     return dict(_REGISTRY)
 
@@ -153,8 +154,11 @@ def counts() -> Dict[str, int]:
 
 
 def build_all() -> None:
-    for k in all_kernels().values():
-        k.lib()
+    """Build every kernel's library, one nvcc per source, all at once."""
+    kernels = list(all_kernels().values())
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        for fut in [pool.submit(k.lib) for k in kernels]:
+            fut.result()
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -186,10 +190,13 @@ def require_contiguous(**tensors: Optional[torch.Tensor]) -> None:
 
 
 def no_grad_inputs(*tensors: Optional[torch.Tensor]) -> None:
-    """The kernels have no backward yet: refuse inputs that want a gradient."""
+    """A wrapper has no backward of its own (the autograd Functions of
+    `ops.spconv` and `ops.kernels.maxpool` call the wrappers with grad mode
+    off): refuse inputs that want a gradient."""
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors
     ):
         raise RuntimeError(
-            "this kernel has no backward; call it under torch.inference_mode()"
+            "this kernel wrapper has no backward; call it under torch.no_grad() "
+            "or through the autograd Functions that use it"
         )

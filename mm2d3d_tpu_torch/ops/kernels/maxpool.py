@@ -1,8 +1,12 @@
 """K4: 3x3 stride-2 pad-1 max pool over NHWC (the ResNet stem pool).
 
-Port of `mm2d3d_tpu/ops/pallas/maxpool.py::maxpool3x3s2` (forward only).
-CUDA kernel: `mm2d3d_tpu_torch/csrc/maxpool.cu`; plain version:
-`maxpool3x3s2_ref`.
+Port of `mm2d3d_tpu/ops/pallas/maxpool.py::maxpool3x3s2`.  CUDA kernel:
+`mm2d3d_tpu_torch/csrc/maxpool.cu`; plain version: `maxpool3x3s2_ref`.
+`MaxPool3x3s2` is the differentiable form: K4 forward, and the backward the
+JAX package gives its Pallas pool, which is not a Pallas kernel but XLA's
+select-and-scatter (`jax.vjp` of `_ref_pool`): here PyTorch's own max-pool
+backward on the saved input, which also routes each gradient to the first
+maximum of its window.
 """
 
 from __future__ import annotations
@@ -65,3 +69,23 @@ def maxpool3x3s2(x: torch.Tensor) -> torch.Tensor:
         ptr(x), ptr(y), b, h, w, c, _DTYPES[x.dtype], stream(),
     ))
     return y
+
+
+class MaxPool3x3s2(torch.autograd.Function):
+    """`maxpool3x3s2` with a gradient: K4 forward on the detached
+    NHWC-contiguous input; the backward is autograd of the plain version on
+    the saved input, which finds each window's first maximum again from x,
+    as select-and-scatter does."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return maxpool3x3s2(x.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(True)
+            (dx,) = torch.autograd.grad(maxpool3x3s2_ref(xd), xd, g)
+        return dx

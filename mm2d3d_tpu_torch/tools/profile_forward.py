@@ -1,16 +1,21 @@
-"""Where the time of the flagship eval forward goes, on one NVIDIA GPU.
+"""Where the time of the flagship eval forward and train step goes, on one
+NVIDIA GPU.
 
     python -m mm2d3d_tpu_torch.tools.profile_forward
 
-For each stage (topology build, 2D branch, 3D branch, the whole fused
-forward over four rotating batches) prints, per call: the host time until
-the calls return and the wall time until the device is done (host clock, no
-profiler, all taken before the profiler first runs), the device's busy
-time from a `torch.profiler` trace (the union of kernel intervals), the idle
-share (1 - busy / wall), the kernel count, the host-device synchronisations
-(CUDA sync debug mode), and the kernel time by kind.  Weights are random
-(seeded), bf16 compute, batch 8 from `data.synthetic.make_batch` seeds 0-3.
-Refuses to run without a CUDA device.
+Two stage tables.  The eval forward: topology build, 2D branch, 3D branch,
+the whole fused forward over four rotating batches.  The train step (batch
+8 per domain, seeds 10 and 11): both topologies, both branches' forwards on
+both domains with the losses, the same plus the backward, the two optimizer
+steps, and the whole `train_step`.  For each stage it prints, per call: the
+host time until the calls return and the wall time until the device is done
+(host clock, no profiler, all taken before the profiler first runs), the
+device's busy time from a `torch.profiler` trace (the union of kernel
+intervals), the idle share (1 - busy / wall), the kernel count, the
+host-device synchronisations (CUDA sync debug mode), the kernel time by
+kind, and the largest kernels by name.  Weights are random (seeded), bf16
+compute, batches from `data.synthetic.make_batch`.  Refuses to run without
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,13 +36,17 @@ from ..train.batch import build_topology, flatten_points, prepare_device_batch
 
 BATCH = 8
 REPS = 8  # calls per sample
+TRAIN_REPS = 3  # train calls per sample
+TOP_KERNELS = 5  # kernels listed by name per stage
 
 SMI = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
        "--format=csv,noheader"]
 
 # kernel-name fragment -> kind, first match wins
 KINDS = (
-    ("apply_kernel", "K1 bandmm"), ("propagate_kernel", "K3 propagate"),
+    ("multi_tensor_apply", "optimizer"), ("apply_kernel", "K1 bandmm"),
+    ("dw_partial_kernel", "K2 bandmm_dw"), ("dw_reduce_kernel", "K2 bandmm_dw"),
+    ("propagate_kernel", "K3 propagate"),
     ("maxpool_", "K4 maxpool"), ("bn_fw", "cuDNN batch norm"),
     ("xmma", "cuDNN/cutlass conv"), ("cutlass", "cuDNN/cutlass conv"),
     ("conv", "cuDNN/cutlass conv"), ("gemm", "GEMM"),
@@ -97,20 +106,60 @@ def count_syncs(fn) -> int:
 
 
 def device_profile(fn, n: int):
-    """(busy ms per call, kernels per call, {kind: ms per call}) from a
-    torch.profiler trace of n calls."""
+    """(busy ms per call, kernels per call, {kind: ms per call}, {kernel
+    name: ms per call}) from a torch.profiler trace of n calls."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+    # device kernels and copies; not the device-side ranges of user
+    # annotations such as "Optimizer.step#AdamW.step", which span kernels
     evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation]
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in evs]) / 1e3 / n
-    by_kind = {}
+    by_kind, by_name = {}, {}
     for e in evs:
-        k = kind(e.name)
-        by_kind[k] = by_kind.get(k, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / n
-    return busy, len(evs) / n, by_kind
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / n
+        by_kind[kind(e.name)] = by_kind.get(kind(e.name), 0.0) + ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    return busy, len(evs) / n, by_kind, by_name
+
+
+def report(stages, reps: int) -> None:
+    """One stage table: every clock reading before the profiler first runs."""
+    times = {tag: time_stage(fn, reps) for tag, fn in stages.items()}
+    for tag, fn in stages.items():
+        host, wall = times[tag]
+        busy, n_kernels, by_kind, by_name = device_profile(fn, reps)
+        print(f"{tag}: host {host:.3f} ms, wall {wall:.3f} ms (no profiler), "
+              f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.2%}, "
+              f"{n_kernels:.0f} kernels, {count_syncs(fn)} host syncs")
+        for k, t in sorted(by_kind.items(), key=lambda x: -x[1]):
+            print(f"    {k:22s} {t:8.3f} ms")
+        top = sorted(by_name.items(), key=lambda x: -x[1])[:TOP_KERNELS]
+        print("    largest kernels: " + "; ".join(f"{t:.3f} ms {n[:90]}" for n, t in top))
+
+
+def train_stages(task, dev):
+    src, trg = (make_batch(np.random.RandomState(s), batch_size=BATCH,
+                           height=225, width=400, n_points=8192).to(dev)
+                for s in (10, 11))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inputs = task.train_inputs(src, trg)
+    task.train_step(src, trg, gen)  # optimizer state, gradients in place
+
+    def optimizers():
+        task.opt2d.step()
+        task.opt3d.step()
+
+    return {
+        "train: topology x2": lambda: task.train_inputs(src, trg),
+        "train: forwards + losses": lambda: task.train_losses(*inputs, gen),
+        "train: forwards + backward": lambda: task.train_losses(*inputs, gen)[0].backward(),
+        "train: optimizer steps": optimizers,
+        "train step (all)": lambda: task.train_step(src, trg, gen),
+    }
 
 
 def main() -> int:
@@ -137,16 +186,8 @@ def main() -> int:
             "forward (4 batches rotating)":
                 lambda: task.forward(batches[next(it) % 4]),
         }
-        # every clock reading before the profiler first runs
-        times = {tag: time_stage(fn, REPS) for tag, fn in stages.items()}
-        for tag, fn in stages.items():
-            host, wall = times[tag]
-            busy, n_kernels, by_kind = device_profile(fn, REPS)
-            print(f"{tag}: host {host:.3f} ms, wall {wall:.3f} ms (no profiler), "
-                  f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.2%}, "
-                  f"{n_kernels:.0f} kernels, {count_syncs(fn)} host syncs")
-            for k, t in sorted(by_kind.items(), key=lambda x: -x[1]):
-                print(f"    {k:22s} {t:8.3f} ms")
+        report(stages, REPS)
+    report(train_stages(task, dev), TRAIN_REPS)
     print(subprocess.run(SMI, capture_output=True, text=True).stdout.strip())
     return 0
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops.hierarchy import Hierarchy, build_hierarchy
+from ..ops.image import apply_color_jitter
 from ..ops.voxelize import VoxelGrid, voxelize
 
 
@@ -68,18 +69,19 @@ def flatten_points(batch: PointBatch):
 
 
 def prepare_device_batch(batch: PointBatch) -> PointBatch:
-    """uint8 image -> float32 [0, 1] (times float32(1/255), as in JAX), and
-    the per-point RGB gather for `feats_from_img`.  Float batches with feats
-    pass through.  Colour jitter is training work and not ported: a batch
-    carrying `jitter_params` raises."""
-    if batch.jitter_params is not None:
-        raise NotImplementedError("colour jitter is not ported yet")
+    """uint8 image -> float32 [0, 1] (times float32(1/255), as in JAX), the
+    colour jitter of `jitter_params` (`ops.image.apply_color_jitter`), and
+    the per-point RGB gather for `feats_from_img`.  As in JAX, the jitter
+    applies on the uint8 path only: float batches with feats pass through
+    untouched, `jitter_params` included."""
     img = batch.img
     if img.dtype == torch.uint8:
         # a Python scalar: no host-to-device copy; float32(1/255) survives
         # the round trip through a double exactly
         img = img.to(torch.float32) * float(np.float32(1.0 / 255.0))
-        batch = dataclasses.replace(batch, img=img)
+        if batch.jitter_params is not None:
+            img = apply_color_jitter(img, batch.jitter_params)
+        batch = dataclasses.replace(batch, img=img, jitter_params=None)
     if batch.feats_from_img:
         bidx = torch.arange(img.shape[0], device=img.device)[:, None]
         feats = img[bidx, batch.img_indices[..., 0].long(),

@@ -1,18 +1,21 @@
-"""The eval forward of the cross-modal task (port of the eval part of
-`mm2d3d_tpu/train/step.py`).
+"""The cross-modal UDA task (port of `mm2d3d_tpu/train/step.py`).
 
-`MM2D3DTask` holds the two networks.  `forward` is the fused 2D+3D forward
-with the softmax ensemble that `__graft_entry__.entry` returns; `eval_step`
-adds the eval losses and the 2D / 3D / ensemble confusion-matrix updates with
-the JAX package's log keys.  Both run under `torch.inference_mode()`.
-Training (optimizers, losses across domains, the adjoints) comes later.
+`MM2D3DTask` holds the two networks and their optimizers.  `train_step` is
+one step of the reference's recipe: both branches forward on the source and
+the target batch in train mode, weighted CE on the source, cross-modal KL on
+both domains, the backward through the sparse-conv adjoints, and one
+optimizer step per branch.  `forward` is the fused 2D+3D forward with the
+softmax ensemble that `__graft_entry__.entry` returns; `eval_step` adds the
+eval losses and the 2D / 3D / ensemble confusion-matrix updates.  Both run
+in eval mode under `torch.inference_mode()`.  Log keys are the JAX
+package's.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,8 +25,9 @@ from ..models.net2d import Net2DSeg
 from ..models.resnet2d import BatchNorm2d
 from ..models.sparse_unet import DownConv, MaskedBatchNorm, Net3DSeg, SubmConv, UpConv
 from .batch import PointBatch, build_topology, flatten_points, prepare_device_batch
-from .losses import IGNORE_INDEX, weighted_cross_entropy
+from .losses import IGNORE_INDEX, kl_consistency, weighted_cross_entropy
 from .metrics import confusion_matrix_update
+from .optim import make_optimizer, make_schedule
 
 
 @dataclass
@@ -68,13 +72,25 @@ def _init_(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class MM2D3DTask:
-    """Static task configuration + the two networks."""
+    """Static task configuration, the two networks and their optimizers.
+
+    `optimizer_2d` / `optimizer_3d` are reference-style configs for
+    `optim.make_optimizer` (default AdamW, lr 1e-3, constant); the
+    optimizers start afresh whenever weights are loaded (`init_params`,
+    `load_flax`), as a new JAX `TrainState` does."""
 
     def __init__(self, num_classes: int, class_weights=None,
+                 loss_composer=None, lambda_xm_src: float = 1.0,
+                 lambda_xm_trg: float = 0.1,
                  full_scale: int = 4096, num_planes: int = 7, m: int = 16,
                  block_reps: int = 1, in_channels_3d: int = 3,
-                 compute_dtype: torch.dtype = torch.bfloat16, device="cpu"):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 optimizer_2d: Optional[Dict[str, Any]] = None,
+                 optimizer_3d: Optional[Dict[str, Any]] = None, device="cpu"):
         self.num_classes = num_classes
+        self.loss_composer = loss_composer
+        self.lambda_xm_src = lambda_xm_src
+        self.lambda_xm_trg = lambda_xm_trg
         self.full_scale = full_scale
         self.num_planes = num_planes
         self.device = torch.device(device)
@@ -87,7 +103,27 @@ class MM2D3DTask:
                                 block_reps=block_reps, num_planes=num_planes,
                                 compute_dtype=compute_dtype)
         for net in (self.model2d, self.model3d):
-            net.requires_grad_(False).eval()
+            net.eval()
+        self.optimizer_2d = optimizer_2d or {"name": "adamw", "lr": 1e-3}
+        self.optimizer_3d = optimizer_3d or {"name": "adamw", "lr": 1e-3}
+        self.lr_schedule_2d = make_schedule(self.optimizer_2d.get("lr_scheduler"),
+                                            self.optimizer_2d.get("lr", 1e-3))
+        self.lr_schedule_3d = make_schedule(self.optimizer_3d.get("lr_scheduler"),
+                                            self.optimizer_3d.get("lr", 1e-3))
+        self._reset_optimizers()
+
+    def current_lrs(self, step: int) -> Dict[str, float]:
+        def at(s):
+            return float(s(step)) if callable(s) else float(s)
+
+        return {"lr/net2d": at(self.lr_schedule_2d), "lr/net3d": at(self.lr_schedule_3d)}
+
+    def _reset_optimizers(self) -> None:
+        self.step = 0
+        self.opt2d, self.sched2d = make_optimizer(self.model2d.parameters(),
+                                                  **self.optimizer_2d)
+        self.opt3d, self.sched3d = make_optimizer(self.model3d.parameters(),
+                                                  **self.optimizer_3d)
 
     def init_params(self, generator: torch.Generator) -> None:
         """Random weights from a seeded CPU generator, then to the device."""
@@ -108,10 +144,13 @@ class MM2D3DTask:
     def _to_device(self) -> None:
         self.model2d.to(self.device, memory_format=torch.channels_last)
         self.model3d.to(self.device)
+        self._reset_optimizers()
 
     # -- forward ---------------------------------------------------------
 
     def _forward(self, batch: PointBatch):
+        self.model2d.eval()
+        self.model3d.eval()
         batch = prepare_device_batch(batch)
         topo = build_topology(batch, self.full_scale, self.num_planes)
         _, feats, labels, mask, _ = flatten_points(batch)
@@ -131,15 +170,117 @@ class MM2D3DTask:
         return {"seg_logit_2d": p2["seg_logit"], "seg_logit_3d": flat3,
                 "ensemble": ens}
 
+    def _seg_loss(self, logits, labels, mask):
+        """The config's composed `losses:` list when a LossComposer is
+        attached, else plain weighted CE."""
+        if self.loss_composer is not None:
+            return self.loss_composer("segmentation", logits, labels, mask)
+        return weighted_cross_entropy(logits, labels, mask, self.class_weights)
+
     def seg_loss_weight(self, labels: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
         """Sum of per-point class weights over valid points (the masked-mean
         loss's own denominator)."""
+        cw = (self.loss_composer.class_weights("segmentation")
+              if self.loss_composer is not None else self.class_weights)
         valid = ((labels != IGNORE_INDEX) & mask).float()
-        if self.class_weights is None:
+        if cw is None:
             return valid.sum()
-        w = self.class_weights[torch.where(valid > 0, labels, 0).long()]
+        cw = torch.as_tensor(cw, dtype=torch.float32, device=labels.device)
+        w = cw[torch.where(valid > 0, labels, 0).long()]
         return (w * valid).sum()
+
+    # -- train -----------------------------------------------------------
+
+    def train_inputs(self, src: PointBatch, trg: PointBatch):
+        """The batches prepared and both topologies built: the first stage
+        of `train_step` -> (src, trg, topo_src, topo_trg)."""
+        src = prepare_device_batch(src)
+        trg = prepare_device_batch(trg)
+        with torch.no_grad():  # not inference_mode: the backward reads the tables
+            topo_src = build_topology(src, self.full_scale, self.num_planes)
+            topo_trg = build_topology(trg, self.full_scale, self.num_planes)
+        return src, trg, topo_src, topo_trg
+
+    def train_losses(self, src: PointBatch, trg: PointBatch, topo_src, topo_trg,
+                     generator: torch.Generator):
+        """Both branches forward on both domains in train mode, and the
+        losses: the second stage of `train_step` -> (total, losses).  The
+        running statistics are threaded src -> trg: each train-mode forward
+        moves them."""
+        self.model2d.train()
+        self.model3d.train()
+        nc = self.num_classes
+        _, feats_src, labels_src, mask_src, _ = flatten_points(src)
+        _, feats_trg, _, mask_trg, _ = flatten_points(trg)
+
+        # source domain
+        p2s, _, a2s = self.model2d(src.img, src.depth, src.img_indices,
+                                   src.point_mask, generator)
+        p3s, _, a3s = self.model3d(feats_src, *topo_src)
+        flat2s = p2s["seg_logit"].reshape(-1, nc)
+        seg_loss_src_2d = self._seg_loss(flat2s, labels_src, mask_src)
+        seg_loss_src_3d = self._seg_loss(p3s["seg_logit"], labels_src, mask_src)
+        xm_src_2d = kl_consistency(a2s["seg_logit_avg"].reshape(-1, nc),
+                                   p3s["seg_logit"], mask_src)
+        xm_src_3d = kl_consistency(a3s["seg_logit_point"], flat2s, mask_src)
+
+        # target domain
+        p2t, _, a2t = self.model2d(trg.img, trg.depth, trg.img_indices,
+                                   trg.point_mask, generator)
+        p3t, _, a3t = self.model3d(feats_trg, *topo_trg)
+        flat2t = p2t["seg_logit"].reshape(-1, nc)
+        xm_trg_2d = kl_consistency(a2t["seg_logit_avg"].reshape(-1, nc),
+                                   p3t["seg_logit"], mask_trg)
+        xm_trg_3d = kl_consistency(a3t["seg_logit_point"], flat2t, mask_trg)
+
+        loss_2d = (seg_loss_src_2d + self.lambda_xm_src * xm_src_2d
+                   + self.lambda_xm_trg * xm_trg_2d)
+        loss_3d = (seg_loss_src_3d + self.lambda_xm_src * xm_src_3d
+                   + self.lambda_xm_trg * xm_trg_3d)
+        total = loss_2d + loss_3d
+        return total, {
+            "train/loss_segmentation": seg_loss_src_2d,
+            "train/loss_segmentation_3d": seg_loss_src_3d,
+            "train/xm_loss_src_2d": xm_src_2d,
+            "train/xm_loss_tgt_2d": xm_trg_2d,
+            "train/xm_loss_src_3d": xm_src_3d,
+            "train/xm_loss_tgt_3d": xm_trg_3d,
+            "train/loss_total": total,
+        }
+
+    def train_step(self, src: PointBatch, trg: PointBatch,
+                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """One UDA step on a source and a target batch; updates the weights,
+        the running statistics and the optimizers in place and returns the
+        logs.  `generator` (on the task's device) feeds the dropout."""
+        src, trg, topo_src, topo_trg = self.train_inputs(src, trg)
+        total, losses = self.train_losses(src, trg, topo_src, topo_trg, generator)
+        self.opt2d.zero_grad(set_to_none=True)
+        self.opt3d.zero_grad(set_to_none=True)
+        total.backward()
+
+        logs = {k: v.detach() for k, v in losses.items()}
+        hiers = (topo_src[1], topo_trg[1])
+        zero = torch.zeros((), device=self.device)
+        # a level at capacity drops voxels; 0 = healthy
+        logs["train/voxel_overflow_levels"] = sum(
+            (lvl.num_voxels >= lvl.capacity).float()
+            for h in hiers for lvl in h.levels) + zero
+        # hits dropped by the slot tables (void the gradients); 0 = healthy
+        logs["train/nbr_slot_overflow"] = sum(
+            lvl.slot_overflow.float()
+            for h in hiers for lvl in h.levels) + zero
+        if src.n_dropped is not None:
+            logs["train/points_dropped"] = (
+                src.n_dropped.sum() + trg.n_dropped.sum()).float()
+
+        self.opt2d.step()
+        self.opt3d.step()
+        self.sched2d.step()
+        self.sched3d.step()
+        self.step += 1
+        return logs
 
     @torch.inference_mode()
     def eval_step(self, batch: PointBatch, metrics: Optional[EvalMetrics] = None,
@@ -154,10 +295,8 @@ class MM2D3DTask:
             cm_avg=confusion_matrix_update(metrics.cm_avg, ens.argmax(-1), labels, mask),
         )
         logs = {
-            "loss_segmentation": weighted_cross_entropy(
-                flat2, labels, mask, self.class_weights),
-            "loss_segmentation_3d": weighted_cross_entropy(
-                flat3, labels, mask, self.class_weights),
+            "loss_segmentation": self._seg_loss(flat2, labels, mask),
+            "loss_segmentation_3d": self._seg_loss(flat3, labels, mask),
             "valid_weight": self.seg_loss_weight(labels, mask),
             "nbr_slot_overflow": sum(
                 lvl.slot_overflow.float() for lvl in hier.levels

@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels of mm2d3d_tpu_torch against their plain
 PyTorch versions on the card, at edge shapes the flagship does not reach:
 ragged voxel counts, more than 128 output channels, Ci = 3 and 224, odd
-image sizes, empty inputs, NaN, and the inputs the kernels refuse.
+image sizes, empty inputs, NaN, and the inputs the kernels refuse; the
+autograd Functions around them (the sparse-conv adjoints, the stem pool's
+backward) on the card against the same Functions on the CPU; and the 2D
+branch's train-mode gradients on the card against the CPU's.
 
 Needs a CUDA device (and nvcc to build the kernels); skips without one.  On
 a machine with a card and no JAX, run it without the repo's conftest.py
@@ -9,15 +12,24 @@ a machine with a card and no JAX, run it without the repo's conftest.py
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 
-K3 and K4 must be bit-identical to their plain versions; K1 within
-1e-4 * max|plain| (fp32 sums in another order).
+K3 and K4 must be bit-identical to their plain versions; K1 and K2 within
+1e-4 * max|plain| (fp32 sums in another order), K2 bit-identical between
+two calls; the adjoints' gradients within 1e-4 * max|CPU| and the 2D
+branch's within 1e-3 of its largest CPU gradient (TF32 off).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from mm2d3d_tpu_torch.ops.kernels import bandmm, maxpool, propagate
+import torch.nn.functional as F
+
+from mm2d3d_tpu_torch.ops import hierarchy as H
+from mm2d3d_tpu_torch.ops import spconv as S
+from mm2d3d_tpu_torch.ops.kernels import bandmm, bandmm_dw, maxpool, propagate
+from mm2d3d_tpu_torch.ops.voxelize import voxelize
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +145,158 @@ def test_maxpool_refuses_what_it_cannot_take(dev):
         maxpool.maxpool3x3s2(torch.randn(2, 9, 11, 12, device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         maxpool.maxpool3x3s2(torch.randn(2, 9, 11, 16, device=dev).transpose(1, 2))
+
+
+BANDMM_DW = {
+    # name: (V, H, K, Ci, Co, with_xm)
+    "ragged_v_tier1_centre": (1000, 4, 27, 16, 16, True),
+    "ci3_input_conv": (777, 3, 27, 3, 16, True),
+    "ci192_decoder_concat": (300, 8, 27, 192, 96, True),
+    "heavy_tier": (129, 20, 27, 24, 40, False),
+    "strided_k8": (513, 1, 8, 48, 112, False),
+    "centre_only": (130, 0, 27, 8, 24, True),
+    "empty": (0, 3, 27, 16, 16, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BANDMM_DW))
+def test_bandmm_dw_matches_plain_version_and_repeats(dev, case, dtype):
+    v, h, k, ci, co, with_xm = BANDMM_DW[case]
+    r = np.random.RandomState(v + h + ci)
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(a).to(dev, dt)
+
+    xm = t(r.randn(v, ci).astype(np.float32)) if with_xm else None
+    x_src = t(r.randn(h, v, ci).astype(np.float32)) if h else None
+    tap = t(_taps(r, h, v, k), torch.int32) if h else None
+    g = t(r.randn(v, co).astype(np.float32))
+    before = bandmm_dw.KERNEL.launches
+    out = bandmm_dw.slot_conv_dw(xm, x_src, tap, g, k_taps=k)
+    again = bandmm_dw.slot_conv_dw(xm, x_src, tap, g, k_taps=k)
+    assert bandmm_dw.KERNEL.launches == before + 2
+    ref = bandmm_dw.slot_conv_dw_ref(xm, x_src, tap, g, k_taps=k)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (k, ci, co)
+    assert torch.equal(out, again)
+    err = float((out - ref).abs().max())
+    assert err <= 1e-4 * max(float(ref.abs().max()), 1e-30), err
+
+
+def _hierarchies(dev):
+    """A 3-level hierarchy (3-tier L0, 2-tier L1, 3-tier L2) built on the
+    card and on the CPU from the same points."""
+    r = np.random.RandomState(11)
+    n, fs = 2000, 64
+    coords = torch.from_numpy(r.randint(0, fs, size=(n, 3)).astype(np.int32))
+    batch = torch.from_numpy(np.repeat(np.arange(2, dtype=np.int32), n // 2))
+    valid = torch.from_numpy(r.rand(n) < 0.95)
+    caps = (2048, 1024, 512)
+    slot_caps = ((3, 6, 26, 512, 128), (8, 26, 256), (4, 8, 26, 256, 256))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        grid = voxelize(coords.to(d), batch.to(d), valid.to(d), fs, capacity=caps[0])
+        out.append(H.build_hierarchy(grid, 3, caps, slot_caps, num_batches=2))
+    return out
+
+
+CONV_FORMS = ["subm_3tier", "subm_2tier", "subm_1tier", "down", "up"]
+
+
+@pytest.mark.parametrize("form", CONV_FORMS)
+def test_conv_adjoints_on_card_match_cpu(dev, form):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hg, hc = _hierarchies(dev)
+    r = np.random.RandomState(CONV_FORMS.index(form))
+    cin, cout = 12, 20
+    if form.startswith("subm"):
+        l = 1 if form == "subm_2tier" else 0
+        lg, lc = hg.levels[l], hc.levels[l]
+        if form == "subm_1tier":
+            drop = dict(slot_idx=None, slot_src2=None, slot_tap2=None, slot_idxm=None,
+                        slot_invm=None, slot_srcm=None, slot_tapm=None)
+            lg, lc = (dataclasses.replace(x, **drop) for x in (lg, lc))
+        assert int(lc.slot_overflow) == 0
+        rows_in = rows_out = lc.capacity
+        fn = {dev.type: lambda x, w: S.subm_conv3(x, lg, w, torch.float32),
+              "cpu": lambda x, w: S.subm_conv3(x, lc, w, torch.float32)}
+        k = 27
+    else:
+        tg, tc = hg.transitions[0], hc.transitions[0]
+        fine, coarse = hc.levels[0].capacity, hc.levels[1].capacity
+        op = S.down_conv2 if form == "down" else S.up_conv2
+        rows_in, rows_out = (fine, coarse) if form == "down" else (coarse, fine)
+        fn = {dev.type: lambda x, w: op(x, tg, w, torch.float32),
+              "cpu": lambda x, w: op(x, tc, w, torch.float32)}
+        k = 8
+    x = r.randn(rows_in, cin).astype(np.float32)
+    w = (r.randn(k, cin, cout) * 0.1).astype(np.float32)
+    cot = r.randn(rows_out, cout).astype(np.float32)
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        xt = torch.from_numpy(x).to(d).requires_grad_(True)
+        wt = torch.from_numpy(w).to(d).requires_grad_(True)
+        # a column slice, as the decoder's concat hands the up conv its gradient
+        wide = torch.from_numpy(np.concatenate([cot, cot], 1)).to(d)
+        fn[d.type](xt, wt).backward(wide[:, :cout])
+        grads[d.type] = (xt.grad.cpu(), wt.grad.cpu())
+    for name, a, b in zip(("d_feats", "d_weight"), grads[dev.type], grads["cpu"]):
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), (name, err)
+
+
+def test_maxpool_backward_matches_max_pool2d(dev):
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.relu(torch.randn((2, 33, 47, 64), generator=g, device=dev))
+    x = x.round(decimals=1)  # ties
+    cot = torch.randn((2, 17, 24, 64), generator=g, device=dev)
+    xa = x.clone().requires_grad_(True)
+    maxpool.MaxPool3x3s2.apply(xa).backward(cot)
+    xb = x.clone().requires_grad_(True)
+    y = F.max_pool2d(xb.permute(0, 3, 1, 2), 3, stride=2, padding=1)
+    y.permute(0, 2, 3, 1).backward(cot)
+    assert torch.equal(xa.grad, xb.grad)
+
+
+def test_net2dseg_gradients_on_card_match_cpu(dev, monkeypatch):
+    """The 2D branch in train mode at an image size that is cropped after
+    padding (45 x 60), the same weights and batch on the card and the CPU,
+    fp32 with TF32 off.  Every parameter gradient within 1e-3 of the
+    branch's largest gradient, as tests/test_torch_models.py holds the CPU
+    against flax (a deep leaf's own maximum is no scale: rounding tips
+    ReLU and max-pool decisions)."""
+    from mm2d3d_tpu_torch.data.synthetic import make_batch
+    from mm2d3d_tpu_torch.flagship import flagship_task
+    from mm2d3d_tpu_torch.train.batch import prepare_device_batch
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    batch = prepare_device_batch(make_batch(
+        np.random.RandomState(0), batch_size=2, height=45, width=60, n_points=256,
+        full_scale=256))
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        task = flagship_task(compute_dtype=torch.float32, device=d, full_scale=256,
+                             num_planes=3, m=8)
+        task.init_params(torch.Generator().manual_seed(0))
+        net = task.model2d.train()
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():  # 1-D leaves near 1, see test_torch_models.py
+            for p in net.parameters():
+                if p.dim() == 1:
+                    p.copy_(1 + 0.1 * torch.randn(p.shape, generator=gen))
+        for enc in (net.rgb_backbone, net.depth_backbone):
+            enc.dropout_rate = 0.0
+        b = batch.to(d)
+        preds, _, aux = net(b.img, b.depth, b.img_indices, b.point_mask)
+        r = np.random.RandomState(2)
+        cot = [torch.from_numpy(r.randn(*t.shape).astype(np.float32)).to(d)
+               for t in (preds["seg_logit"], aux["seg_logit_avg"])]
+        ((preds["seg_logit"] * cot[0]).sum() + (aux["seg_logit_avg"] * cot[1]).sum()
+         ).backward()
+        grads[d.type] = {n: p.grad.cpu() for n, p in net.named_parameters()}
+    scale = max(float(g.abs().max()) for g in grads["cpu"].values())
+    for name, ref in grads["cpu"].items():
+        err = float((grads[dev.type][name] - ref).abs().max())
+        assert err <= 1e-3 * scale, (name, err, scale)

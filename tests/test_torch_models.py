@@ -21,7 +21,7 @@ from mm2d3d_tpu.ops.pallas.maxpool import _ref_pool
 from mm2d3d_tpu.train.batch import build_topology as build_topology_jax
 from mm2d3d_tpu.train.batch import flatten_points as flatten_points_jax
 from mm2d3d_tpu_torch.data.synthetic import make_batch
-from mm2d3d_tpu_torch.models.convert import from_flax
+from mm2d3d_tpu_torch.models.convert import from_flax, to_flax
 from mm2d3d_tpu_torch.models.net2d import Net2DSeg
 from mm2d3d_tpu_torch.models.sparse_unet import Net3DSeg
 from mm2d3d_tpu_torch.ops.kernels.maxpool import maxpool3x3s2, maxpool3x3s2_ref
@@ -129,3 +129,64 @@ def test_bridge_uses_every_leaf_once_and_fills_every_tensor(net2d, net3d):
     for sd, m in ((sd2, m2), (sd3, m3)):
         for k, v in m.state_dict().items():
             assert tuple(sd[k].shape) == tuple(v.shape), k
+
+
+def test_to_flax_inverts_from_flax(net2d, net3d):
+    """to_flax(from_flax(t)) == t, leaf by leaf, for both branches."""
+    _, p2, s2, _ = net2d
+    p3, s3, _ = net3d
+    back = to_flax(*from_flax(p2, s2, p3, s3))
+    for ours, ref in zip(back, (p2, s2, p3, s3)):
+        assert jax.tree_util.tree_structure(ours) == jax.tree_util.tree_structure(ref)
+        for a, b in zip(jax.tree_util.tree_leaves(ours), jax.tree_util.tree_leaves(ref)):
+            assert a.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+
+
+def test_net2dseg_train_gradients_match_flax(net2d, monkeypatch):
+    """Train mode (batch statistics; dropout off: rate 0 in the port, flax's
+    Dropout patched to the identity) at H = 33, which the head crops after
+    padding to 48.  Every parameter gradient of sum(lifted logits * cot) vs
+    jax.grad, within 1e-3 of the branch's largest gradient, as the eval
+    forward is held (oneDNN vs XLA:CPU through a deep conv stack); a deep
+    leaf's own maximum is no scale, see chip_smoke.py's phase 7.  The 1-D
+    leaves (BN scales and biases, conv biases) are drawn as 1 + 0.1 N(0, 1),
+    as in tests/test_torch_train.py: with the init's zero biases, noise of
+    1e-6 on the input images alone moves the port's gradient by 1.4e-3 of
+    the branch's largest, with them the two packages agree to 1.2e-4."""
+    import flax.linen
+
+    (img, depth, idx, mask), params, stats, _ = net2d
+    r = np.random.RandomState(3)
+    params = jax.tree_util.tree_map(
+        lambda x: (1 + 0.1 * r.randn(*x.shape)).astype(np.float32) if x.ndim == 1 else x,
+        params)
+    cots = [r.randn(2, 25, NC).astype(np.float32) for _ in range(2)]
+    monkeypatch.setattr(flax.linen.Dropout, "__call__",
+                        lambda self, x, deterministic=None, rng=None: x)
+    model_j = Net2DSegJax(num_classes=NC, compute_dtype=jnp.float32)
+    args = tuple(jnp.asarray(a) for a in (img, depth, idx, mask))
+
+    def loss_j(p):
+        (preds, _, aux), _ = model_j.apply(
+            {"params": p, "batch_stats": stats}, *args, True, with_features=False,
+            mutable=["batch_stats"])
+        return (jnp.sum(preds["seg_logit"] * cots[0])
+                + jnp.sum(aux["seg_logit_avg"] * cots[1]))
+
+    ref = jax.tree_util.tree_leaves_with_path(jax.jit(jax.grad(loss_j))(params))
+
+    model = Net2DSeg(NC, compute_dtype=torch.float32).train()
+    model.load_state_dict(from_flax(params, stats, {}, {})[0], strict=True)
+    for enc in (model.rgb_backbone, model.depth_backbone):
+        enc.dropout_rate = 0.0
+    p, _, a = model(*(torch.from_numpy(x) for x in (img, depth, idx, mask)))
+    ((p["seg_logit"] * torch.from_numpy(cots[0])).sum()
+     + (a["seg_logit_avg"] * torch.from_numpy(cots[1])).sum()).backward()
+    ours = dict(jax.tree_util.tree_leaves_with_path(to_flax(
+        {n: q.grad for n, q in model.named_parameters()}, {})[0]))
+    assert len(ours) == len(ref)
+    scale = max(float(np.abs(g).max()) for _, g in ref)
+    for path, g in ref:
+        np.testing.assert_allclose(ours[path], np.asarray(g), rtol=0, atol=1e-3 * scale,
+                                   err_msg=jax.tree_util.keystr(path))

@@ -1,9 +1,11 @@
-"""Sparse convolution forward of mm2d3d_tpu_torch vs the JAX package.
+"""Sparse convolutions of mm2d3d_tpu_torch vs the JAX package.
 
-K1's plain version (the wrapper's CPU route) vs `bandmm._apply_xla`, then
-`subm_conv3` over each tier form and the strided convolutions, on the port's
-own topology vs the JAX ops on the JAX tables.  fp32 throughout; rtol/atol
-1e-5, since only the order of fp32 sums differs.
+K1's and K2's plain versions (the wrappers' CPU route) vs
+`bandmm._apply_xla` and `bandmm._dw_xla`, then `subm_conv3` over each tier
+form and the strided convolutions, forward and adjoint (torch autograd vs
+`jax.vjp` of the custom VJPs), on the port's own topology vs the JAX ops on
+the JAX tables.  fp32 throughout; forward rtol/atol 1e-5, K2 and the
+adjoints within 1e-5 * max|ref|, since only the order of fp32 sums differs.
 """
 
 import dataclasses
@@ -23,6 +25,7 @@ from mm2d3d_tpu.ops.voxelize import voxelize as voxelize_jax
 from mm2d3d_tpu_torch.ops import hierarchy as H
 from mm2d3d_tpu_torch.ops import spconv as S
 from mm2d3d_tpu_torch.ops.kernels.bandmm import slot_conv_apply, slot_conv_apply_ref
+from mm2d3d_tpu_torch.ops.kernels.bandmm_dw import slot_conv_dw, slot_conv_dw_ref
 from mm2d3d_tpu_torch.ops.voxelize import voxelize
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -66,6 +69,25 @@ def test_slot_conv_apply_matches_apply_xla(rng, case):
         out = fn(t(xm), t(x_src), t(tap), t(w))
         assert out.dtype == torch.float32 and out.shape == (v, c["co"])
         np.testing.assert_allclose(t2n(out), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_slot_conv_dw_matches_dw_xla(rng, case):
+    c = CASES[case]
+    v = 700
+    xm = rng.randn(v, c["ci"]).astype(np.float32) if c["xm"] else None
+    x_src = rng.randn(c["h"], v, c["ci"]).astype(np.float32) if c["h"] else None
+    tap = _taps(rng, c["h"], v, c["k"], c["tap_lo"]) if c["h"] else None
+    g = rng.randn(v, c["co"]).astype(np.float32)
+
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    ref = np.asarray(BJ._dw_xla(j(xm), j(x_src), j(tap), j(g), c["k"]))
+    for fn in (slot_conv_dw_ref, slot_conv_dw):
+        out = fn(t(xm), t(x_src), t(tap), t(g), k_taps=c["k"])
+        assert out.dtype == torch.float32 and out.shape == (c["k"], c["ci"], c["co"])
+        np.testing.assert_allclose(t2n(out), ref, rtol=0,
+                                   atol=1e-5 * float(np.abs(ref).max()))
 
 
 def test_slot_conv_apply_refuses_grad(rng):
@@ -126,6 +148,40 @@ def test_subm_conv3_matches_jax(tables, form):
     np.testing.assert_allclose(t2n(out), np.asarray(ref), **TOL)
 
 
+def _assert_grads_match(fn_t, fn_j, x, w, cot):
+    """torch autograd of fn_t vs jax.vjp of fn_j: d_feats and d_weight
+    within 1e-5 * max|ref|."""
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    fn_t(xt, wt).backward(torch.from_numpy(cot))
+    _, vjp = jax.vjp(fn_j, jnp.asarray(x), jnp.asarray(w))
+    for name, ours, ref in zip(("d_feats", "d_weight"), (xt.grad, wt.grad),
+                               vjp(jnp.asarray(cot))):
+        ref = np.asarray(ref)
+        assert ours.shape == ref.shape, name
+        np.testing.assert_allclose(t2n(ours), ref, rtol=0,
+                                   atol=1e-5 * float(np.abs(ref).max()), err_msg=name)
+
+
+@pytest.mark.parametrize("form", ["3tier", "2tier", "1tier"])
+def test_subm_conv3_adjoint_matches_jax(tables, form):
+    hj, ht = tables
+    l = {"3tier": 0, "2tier": 1, "1tier": 0}[form]
+    lt, lj = ht.levels[l], hj.levels[l]
+    if form == "1tier":
+        lt, lj = _strip(lt, lj)
+    # dropped slot hits would void the adjoint (it drops per source row)
+    assert int(lt.slot_overflow) == int(lj.slot_overflow) == 0
+    r = np.random.RandomState(10 + l)
+    cin, cout = 12, 20
+    feats = r.randn(lt.capacity, cin).astype(np.float32)
+    w = (r.randn(27, cin, cout) * 0.1).astype(np.float32)
+    cot = r.randn(lt.capacity, cout).astype(np.float32)
+    _assert_grads_match(
+        lambda x, k: S.subm_conv3(x, lt, k, torch.float32),
+        lambda x, k: SJ.subm_conv3(x, lj, k, jnp.float32), feats, w, cot)
+
+
 @pytest.mark.parametrize("op", ["down", "up"])
 def test_strided_convs_match_jax(tables, op):
     hj, ht = tables
@@ -141,3 +197,21 @@ def test_strided_convs_match_jax(tables, op):
     ref = jax.jit(lambda a, b: fn_j(a, tj, b, jnp.float32))(
         jnp.asarray(x), jnp.asarray(w))
     np.testing.assert_allclose(t2n(out), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("op", ["down", "up"])
+def test_strided_convs_adjoint_matches_jax(tables, op):
+    hj, ht = tables
+    r = np.random.RandomState(4)
+    cin, cout = 16, 24
+    w = (r.randn(8, cin, cout) * 0.1).astype(np.float32)
+    tt, tj = ht.transitions[0], hj.transitions[0]
+    rows_in, rows_out = (ht.levels[0].capacity, ht.levels[1].capacity)
+    if op == "up":
+        rows_in, rows_out = rows_out, rows_in
+    x = r.randn(rows_in, cin).astype(np.float32)
+    cot = r.randn(rows_out, cout).astype(np.float32)
+    fn_t, fn_j = (S.down_conv2, SJ.down_conv2) if op == "down" else (
+        S.up_conv2, SJ.up_conv2)
+    _assert_grads_match(lambda a, k: fn_t(a, tt, k, torch.float32),
+                        lambda a, k: fn_j(a, tj, k, jnp.float32), x, w, cot)

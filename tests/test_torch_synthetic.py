@@ -50,10 +50,19 @@ def test_prepare_device_batch_wire(seed):
 
 
 def test_prepare_device_batch_refuses_jitter():
-    b = make_batch(np.random.RandomState(0), wire=True, **DRYRUN)
-    b.jitter_params = torch.zeros((2, 4))
-    with pytest.raises(NotImplementedError):
-        prepare_device_batch(b)
+    """Colour jitter applies to the uint8 wire image only: a float batch
+    carrying `jitter_params` is refused the jitter and passes through
+    untouched, as in the JAX package."""
+    params = torch.tensor([[1.3, 1.0, 1.0, 0.0]] * 2)  # brightness x1.3
+    flt = make_batch(np.random.RandomState(0), **DRYRUN)
+    flt.jitter_params = params
+    assert prepare_device_batch(flt) is flt
+    wire = make_batch(np.random.RandomState(0), wire=True, **DRYRUN)
+    plain = prepare_device_batch(wire)
+    wire.jitter_params = params
+    jittered = prepare_device_batch(wire)
+    assert jittered.jitter_params is None
+    assert torch.equal(jittered.img, torch.clamp(plain.img * params[0, 0], 0, 1))
 
 
 def test_port_imports_without_jax():
@@ -69,8 +78,11 @@ def test_port_imports_without_jax():
         "import chip_smoke\n"
         "import mm2d3d_tpu_torch.train.step, mm2d3d_tpu_torch.flagship\n"
         "import mm2d3d_tpu_torch.data.synthetic, mm2d3d_tpu_torch.models.convert\n"
+        "import mm2d3d_tpu_torch.train.optim, mm2d3d_tpu_torch.ops.image\n"
+        "import mm2d3d_tpu_torch.tools.profile_forward\n"
         "from mm2d3d_tpu_torch.ops import kernels\n"
-        "assert sorted(kernels.all_kernels()) == ['bandmm', 'maxpool', 'propagate']\n"
+        "assert sorted(kernels.all_kernels()) == ['bandmm', 'bandmm_dw', 'maxpool', "
+        "'propagate']\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
