@@ -14,7 +14,10 @@ from .train.step import MM2D3DTask
 CLASS_WEIGHTS = [1.9241476, 1.0, 2.16763851, 2.78254323, 1.54875664, 1.85686537]
 
 
-def flagship_task(compute_dtype=None, device="cpu", **over) -> MM2D3DTask:
+def flagship_task(compute_dtype=None, device="cuda", **over) -> MM2D3DTask:
+    """The flagship task on `device` (the CUDA device unless the caller
+    passes "cpu"; raises where there is none); `over` overrides any
+    `MM2D3DTask` argument, such as `model2d`."""
     kwargs = dict(
         num_classes=6,
         class_weights=CLASS_WEIGHTS,

@@ -6,9 +6,13 @@ Public layout is the JAX package's: images (B, H, W, C), logits
 `torch.channels_last` memory.  The head keeps `dec_conv_stage1`, `head_conv`
 and `aux_conv` as separate parameters and composes them in forward
 (`w12 = dec_k @ k_heads`), as the JAX package does, then crops the padding
-and applies the 5x5 `count_include_pad` average pool.  Train and eval mode
-follow `nn.Module.train()`; in train mode both encoders' dropout draws from
-the generator passed to `forward`.
+and applies the 5x5 `count_include_pad` average pool.  With `fused_head`,
+the counterpart of the JAX net's `pallas_head`, the head's conv, bias, crop
+and pool run in the K5 kernel (`ops.kernels.head2d.HeadPool`) on the three
+decoder-tail pieces, which are then never concatenated; wherever
+`head2d.supports` refuses the shapes, the unfused head runs, as in JAX.
+Train and eval mode follow `nn.Module.train()`; in train mode both
+encoders' dropout draws from the generator passed to `forward`.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels import head2d
 from ..ops.lifting import lift_image_features
 from .resnet2d import BatchNorm2d, ResNet34Encoder, StemParams, conv2d
 
@@ -55,10 +60,12 @@ class FuseStage(nn.Module):
 
 class Net2DSeg(nn.Module):
     def __init__(self, num_classes: int,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 fused_head: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.compute_dtype = compute_dtype
+        self.fused_head = fused_head
         cd = compute_dtype
         self.stem_rgb = StemParams(3)
         self.stem_depth = StemParams(1)
@@ -110,7 +117,6 @@ class Net2DSeg(nn.Module):
         x = self.up3(x)
         x = self.fuse2(torch.cat([dep[1], x, rgb[1]], 1))
         x = self.up2(x)
-        x_cat = torch.cat([dep[0], x, rgb[0]], 1)
 
         # conv3x3(cat, Wd) @ Kh == conv3x3(cat, Wd @ Kh): compose the heads
         nc = self.num_classes
@@ -119,13 +125,21 @@ class Net2DSeg(nn.Module):
         w12 = torch.einsum("ochw,od->dchw", self.dec_conv_stage1.weight, k_heads)
         b12 = self.dec_conv_stage1.bias @ k_heads
         cd = self.compute_dtype
-        y = conv2d(x_cat, w12, None, 1, 1, cd).float() + b12[None, :, None, None]
-        # pooled in NCHW layout: CUDA's avg_pool2d backward gives wrong
-        # gradients for channels_last input (torch 2.11 on an H100, held
-        # against the CPU's in tests/test_torch_kernels_cuda.py)
-        y = F.avg_pool2d(y[:, :, :h, :w].contiguous(), 5, stride=1, padding=2,
-                         count_include_pad=True)
-        y = y.permute(0, 2, 3, 1)  # (B, h, w, 2nc)
+        if self.fused_head and head2d.supports(img.shape[2], img.shape[3], h, w,
+                                               2 * nc):
+            # NHWC views of the channels_last pieces; HWIO weights
+            pieces = [t.permute(0, 2, 3, 1).contiguous() for t in (dep[0], x, rgb[0])]
+            y = head2d.HeadPool.apply(h, w, cd, w12.permute(2, 3, 1, 0), b12,
+                                      *pieces)  # (B, h, w, 2nc)
+        else:
+            x_cat = torch.cat([dep[0], x, rgb[0]], 1)
+            y = conv2d(x_cat, w12, None, 1, 1, cd).float() + b12[None, :, None, None]
+            # pooled in NCHW layout: CUDA's avg_pool2d backward gives wrong
+            # gradients for channels_last input (torch 2.11 on an H100, held
+            # against the CPU's in tests/test_torch_kernels_cuda.py)
+            y = F.avg_pool2d(y[:, :, :h, :w].contiguous(), 5, stride=1, padding=2,
+                             count_include_pad=True)
+            y = y.permute(0, 2, 3, 1)  # (B, h, w, 2nc)
 
         seg_logit_2d = y[..., :nc] + self.head_conv.bias
         seg_logit_avg_2d = y[..., nc:] + self.aux_conv.bias

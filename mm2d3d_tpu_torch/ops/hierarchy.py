@@ -1,11 +1,12 @@
 """Sparse-grid hierarchy: per-level voxel tables and static rulebooks.
 
-Port of `mm2d3d_tpu/ops/hierarchy.py` for the route the flagship runs: the
-voxel tables are coarsened bottom-up, the coarsest level's 27-neighbour
-table comes from a dense occupancy map, and every finer level's table and
-tier-1 slots come from octree propagation through the K3 kernel
-(`ops.kernels.propagate`), followed by the compacted overflow tiers.  All
-tables are int32 and bit-identical to the JAX package's.
+Port of `mm2d3d_tpu/ops/hierarchy.py`: the voxel tables are coarsened
+bottom-up, the coarsest level's 27-neighbour table comes from a dense
+occupancy map, and every finer level's table and tier-1 slots come from
+octree propagation through the K3 kernel (`ops.kernels.propagate`),
+followed by the compacted overflow tiers of each level's slot spec (or no
+slot tables, for the dense 27-tap path).  All tables are int32 and
+bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import functools
 import itertools
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -236,52 +237,76 @@ def _level(grid: VoxelGrid, nbr: torch.Tensor) -> GridLevel:
     )
 
 
+SlotSpec = Union[None, int, Tuple[int, ...]]
+
+
+def _check_spec(l: int, spec: SlotSpec) -> SlotSpec:
+    if spec is None or (isinstance(spec, int) and not isinstance(spec, bool)
+                        and spec >= 0):
+        return spec
+    if isinstance(spec, tuple) and len(spec) in (3, 5):
+        return spec
+    raise ValueError(f"level {l}: slot spec must be None, an int >= 0, or a 3- "
+                     f"or 5-tuple, got {spec!r}")
+
+
 def build_hierarchy(grid: VoxelGrid, num_levels: int,
-                    capacities: Sequence[int], slot_caps: Sequence[tuple],
+                    capacities: Sequence[int],
+                    slot_caps: Optional[Sequence[SlotSpec]],
                     num_batches: int) -> Hierarchy:
     """All U-Net levels from the level-0 grid.
 
-    `slot_caps[l]` is a 3-tier spec (h1, h2, h_max, vm_cap, vh_cap) or a
-    2-tier spec (h_lo, h_max, vh_cap) (`train.batch.default_slot_caps`).
+    `slot_caps[l]` takes every form the JAX `build_hierarchy` takes: a
+    3-tier spec (h1, h2, h_max, vm_cap, vh_cap), a 2-tier spec (h_lo, h_max,
+    vh_cap) (`train.batch.default_slot_caps`), an int h (1-tier: the first h
+    hits, the rest dropped and counted), or None / 0 (no slot tables: the
+    level's convolutions take the dense 27-tap path).  `slot_caps=None`, or
+    a list shorter than `num_levels`, leaves the levels without a spec dense.
+
     The coarsest level's table comes from `build_nbr`; every finer one from
-    `propagate_nbr_slots` (K3), which also yields its tier-1 slots."""
+    `propagate_nbr_slots` (K3), which also yields its tier-1 slots.  A
+    level without slots takes K3's table with h1 = 0: the same table as the
+    JAX package's select tree (`propagate_nbr`), from one launch."""
     grids: List[VoxelGrid] = [grid]
     transitions: List[LevelTransition] = []
     for l in range(1, num_levels):
         grid_c, trans = _coarsen_grid(grids[-1], capacity=capacities[l])
         grids.append(grid_c)
         transitions.append(trans)
-    for l, spec in enumerate(slot_caps[:num_levels]):
-        if not isinstance(spec, tuple) or len(spec) not in (3, 5):
-            raise ValueError(f"level {l}: slot spec must be a 3- or 5-tuple, got {spec!r}")
-    if len(slot_caps) < num_levels:
-        raise ValueError(f"{len(slot_caps)} slot specs for {num_levels} levels")
+    specs = [_check_spec(l, slot_caps[l])
+             if slot_caps is not None and l < len(slot_caps) else None
+             for l in range(num_levels)]
+    h1s = [(spec[0] if isinstance(spec, tuple) else spec) or 0 for spec in specs]
+    has_slots = [isinstance(spec, tuple) or bool(spec) for spec in specs]
 
     nbrs = [None] * num_levels
     tier1 = [None] * num_levels  # (src1, tap1, cnt)
     nbrs[-1] = build_nbr(grids[-1], num_batches)
-    tier1[-1] = _tier1(nbrs[-1], slot_caps[num_levels - 1][0])
+    if has_slots[-1]:
+        tier1[-1] = _tier1(nbrs[-1], h1s[-1])
     for l in range(num_levels - 2, -1, -1):
         nbrs[l], s1, t1, cnt = propagate_nbr_slots(
-            grids[l], transitions[l], nbrs[l + 1], slot_caps[l][0])
+            grids[l], transitions[l], nbrs[l + 1], h1s[l])
         tier1[l] = (s1, t1, cnt)
 
     levels = []
-    for l, (g, n) in enumerate(zip(grids, nbrs)):
+    for l, (g, n, spec) in enumerate(zip(grids, nbrs, specs)):
         lev = _level(g, n)
-        s1, t1, cnt = tier1[l]
-        spec = slot_caps[l]
-        lev.slot_src, lev.slot_tap = s1, t1
-        if len(spec) == 5:
+        if has_slots[l]:
+            s1, t1, cnt = tier1[l]
+            lev.slot_src, lev.slot_tap = s1, t1
+        if isinstance(spec, tuple) and len(spec) == 5:
             h1, h2, h_max, vm_cap, vh_cap = spec
             (lev.slot_idxm, lev.slot_invm, lev.slot_srcm, lev.slot_tapm,
              lev.slot_idx, lev.slot_src2, lev.slot_tap2, lev.slot_overflow) = (
                 finish_slots_tiered(n, cnt, h1, h2, h_max,
                                     min(vm_cap, g.capacity),
                                     min(vh_cap, g.capacity)))
-        else:
+        elif isinstance(spec, tuple):
             h_lo, h_max, vh_cap = spec
             lev.slot_idx, lev.slot_src2, lev.slot_tap2, lev.slot_overflow = (
                 finish_slots_split(n, cnt, h_lo, h_max, min(vh_cap, g.capacity)))
+        elif spec:
+            lev.slot_overflow = _over_tail(cnt, spec)
         levels.append(lev)
     return Hierarchy(levels=tuple(levels), transitions=tuple(transitions))

@@ -139,7 +139,7 @@ def register(kernel: Kernel) -> Kernel:
 
 def all_kernels() -> Dict[str, Kernel]:
     # importing the kernel modules registers them
-    from . import bandmm, bandmm_dw, maxpool, propagate  # noqa: F401
+    from . import bandmm, bandmm_dw, head2d, maxpool, propagate, tapsum  # noqa: F401
 
     return dict(_REGISTRY)
 
@@ -191,8 +191,8 @@ def require_contiguous(**tensors: Optional[torch.Tensor]) -> None:
 
 def no_grad_inputs(*tensors: Optional[torch.Tensor]) -> None:
     """A wrapper has no backward of its own (the autograd Functions of
-    `ops.spconv` and `ops.kernels.maxpool` call the wrappers with grad mode
-    off): refuse inputs that want a gradient."""
+    `ops.spconv`, `ops.kernels.maxpool` and `ops.kernels.head2d` call the
+    wrappers with grad mode off): refuse inputs that want a gradient."""
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors
     ):

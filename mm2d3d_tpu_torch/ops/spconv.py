@@ -8,13 +8,20 @@ the per-tap weights into fp32:
 - the stride-2 down convolution (per-tap product + segment sum over the
   Morton-sorted parent ids) and the stride-2 transposed convolution.
 
+A level without slot tables takes the dense 27-tap submanifold conv
+(`_SubmDense`): all 27 neighbour rows gathered by the level's `nbr` table
+and contracted by the K6 kernel (`ops.kernels.tapsum.tapsum`).
+
 Each form is a `torch.autograd.Function` whose backward mirrors the JAX
 package's custom VJP line for line.  The input gradient is K1 again over the
 same tables: with the flipped, transposed weights `W[::-1].swapaxes(1, 2)`
 for the submanifold conv (tap k pairs with 26 - k), with the transposed
 weights for the strided ones (which are each other's transposes).  The
 weight gradient is K2 (`ops.kernels.bandmm_dw.slot_conv_dw`) over the
-gathered rows the forward keeps.  Inputs are cast to `compute_dtype`;
+gathered rows the forward keeps.  The dense form's input gradient is K6
+with the flipped weights; its weight gradient is a plain product of the
+kept gather and the output gradient, which the JAX package also leaves to
+XLA (`dot_general`).  Inputs are cast to `compute_dtype`;
 outputs are fp32; the gradients are cast to the compute dtype where JAX
 casts them, and autograd casts them back to the fp32 parameters.
 """
@@ -26,6 +33,7 @@ import torch
 from .hierarchy import GridLevel, LevelTransition
 from .kernels.bandmm import slot_conv_apply
 from .kernels.bandmm_dw import slot_conv_dw
+from .kernels.tapsum import tapsum
 
 
 def _pad_zero_row(feats: torch.Tensor) -> torch.Tensor:
@@ -163,15 +171,38 @@ class _SubmSlots1(torch.autograd.Function):
         return d_feats.to(xc.dtype), d_weight.to(weight.dtype), None
 
 
+class _SubmDense(torch.autograd.Function):
+    """Dense 27-tap form (`_subm_apply`; `_subm_fwd` / `_subm_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, level: GridLevel):
+        # the gathered neighbourhoods are the residual: the weight gradient
+        # needs exactly this tensor, as in JAX
+        gathered = _take(_pad_zero_row(feats), level.nbr)  # (27, V, Ci)
+        ctx.save_for_backward(weight)
+        ctx.res = (gathered, level)
+        return tapsum(gathered, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        (weight,) = ctx.saved_tensors
+        gathered, lev = ctx.res
+        g = g.to(gathered.dtype).contiguous()  # a slice when the output was concatenated
+        # the dense table is symmetric: tap k of v pairs with tap 26 - k
+        d_feats = tapsum(_take(_pad_zero_row(g), lev.nbr), _flip(weight))
+        d_weight = torch.einsum("kvi,vo->kio", gathered, g)  # (27, Ci, Co)
+        return d_feats.to(gathered.dtype), d_weight.to(weight.dtype), None
+
+
 def subm_conv3(feats: torch.Tensor, level: GridLevel, weight: torch.Tensor,
                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Submanifold 3x3x3 convolution over the level's slot tables.
+    """Submanifold 3x3x3 convolution over the level's slot tables, or over
+    its dense 27-neighbour table where it has none.
 
     feats (V, Cin), weight (27, Cin, Cout) in `hierarchy.OFFSETS_27` tap
     order -> (V, Cout) fp32."""
-    if level.slot_src is None:
-        raise NotImplementedError("the dense 27-tap path is not ported")
-    fn = (_SubmSlots3 if level.slot_srcm is not None
+    fn = (_SubmDense if level.slot_src is None
+          else _SubmSlots3 if level.slot_srcm is not None
           else _SubmSlots2 if level.slot_src2 is not None else _SubmSlots1)
     return fn.apply(feats.to(compute_dtype),
                     weight.to(compute_dtype).contiguous(), level)

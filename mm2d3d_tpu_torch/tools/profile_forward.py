@@ -1,7 +1,7 @@
 """Where the time of the flagship eval forward and train step goes, on one
 NVIDIA GPU.
 
-    python -m mm2d3d_tpu_torch.tools.profile_forward
+    python -m mm2d3d_tpu_torch.tools.profile_forward [--optin]
 
 Two stage tables.  The eval forward: topology build, 2D branch, 3D branch,
 the whole fused forward over four rotating batches.  The train step (batch
@@ -14,8 +14,11 @@ device's busy time from a `torch.profiler` trace (the union of kernel
 intervals), the idle share (1 - busy / wall), the kernel count, the
 host-device synchronisations (CUDA sync debug mode), the kernel time by
 kind, and the largest kernels by name.  Weights are random (seeded), bf16
-compute, batches from `data.synthetic.make_batch`.  Refuses to run without
-a CUDA device.
+compute, batches from `data.synthetic.make_batch`.  With `--optin` the
+same tables for the opt-in path: the fused 2D head (K5) and topologies
+without slot tables (`slot_caps=None`, the dense 27-tap convs through K6),
+handed to the task as `topo=` / `topo_src=`, `topo_trg=`.  Refuses to run
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..data.synthetic import make_batch
 from ..flagship import flagship_task
+from ..models.net2d import Net2DSeg
 from ..train.batch import build_topology, flatten_points, prepare_device_batch
 
 BATCH = 8
@@ -47,7 +51,9 @@ KINDS = (
     ("multi_tensor_apply", "optimizer"), ("apply_kernel", "K1 bandmm"),
     ("dw_partial_kernel", "K2 bandmm_dw"), ("dw_reduce_kernel", "K2 bandmm_dw"),
     ("propagate_kernel", "K3 propagate"),
-    ("maxpool_", "K4 maxpool"), ("bn_fw", "cuDNN batch norm"),
+    ("maxpool_", "K4 maxpool"), ("head_conv_kernel", "K5 head2d"),
+    ("head_box_kernel", "K5 head2d"), ("tapsum_kernel", "K6 tapsum"),
+    ("bn_fw", "cuDNN batch norm"),
     ("xmma", "cuDNN/cutlass conv"), ("cutlass", "cuDNN/cutlass conv"),
     ("conv", "cuDNN/cutlass conv"), ("gemm", "GEMM"),
     ("gather", "gather/index"), ("index", "gather/index"),
@@ -141,53 +147,72 @@ def report(stages, reps: int) -> None:
         print("    largest kernels: " + "; ".join(f"{t:.3f} ms {n[:90]}" for n, t in top))
 
 
-def train_stages(task, dev):
+def train_stages(task, dev, slot_caps):
     src, trg = (make_batch(np.random.RandomState(s), batch_size=BATCH,
                            height=225, width=400, n_points=8192).to(dev)
                 for s in (10, 11))
     gen = torch.Generator(device=dev).manual_seed(0)
-    inputs = task.train_inputs(src, trg)
-    task.train_step(src, trg, gen)  # optimizer state, gradients in place
+
+    def topos():
+        with torch.no_grad():
+            return tuple(build_topology(b, task.full_scale, task.num_planes,
+                                        slot_caps=slot_caps) for b in (src, trg))
+
+    inputs = task.train_inputs(src, trg, *topos())
+    task.train_step(src, trg, gen, *topos())  # optimizer state, gradients in place
 
     def optimizers():
         task.opt2d.step()
         task.opt3d.step()
 
     return {
-        "train: topology x2": lambda: task.train_inputs(src, trg),
+        "train: topology x2": topos,
         "train: forwards + losses": lambda: task.train_losses(*inputs, gen),
         "train: forwards + backward": lambda: task.train_losses(*inputs, gen)[0].backward(),
         "train: optimizer steps": optimizers,
-        "train step (all)": lambda: task.train_step(src, trg, gen),
+        "train step (all)": lambda: task.train_step(src, trg, gen, *topos()),
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    optin = "--optin" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("profile_forward: no CUDA device", file=sys.stderr)
         return 1
     print(subprocess.run(SMI, capture_output=True, text=True).stdout.strip())
     dev = torch.device("cuda")
-    task = flagship_task(device=dev)
+    slot_caps = None if optin else "default"
+    over = {"model2d": Net2DSeg(6, torch.bfloat16, fused_head=True)} if optin else {}
+    print("path: " + ("opt-in (fused head, dense 27-tap convs)" if optin else "default"))
+    task = flagship_task(device=dev, **over)
     task.init_params(torch.Generator().manual_seed(0))
     batches = [make_batch(np.random.RandomState(s), batch_size=BATCH,
                           height=225, width=400, n_points=8192).to(dev)
                for s in range(4)]
     with torch.inference_mode():
         b = prepare_device_batch(batches[0])
-        topo = build_topology(b, task.full_scale, task.num_planes)
+
+        def topology(x):
+            return build_topology(x, task.full_scale, task.num_planes,
+                                  slot_caps=slot_caps)
+
+        topo = topology(b)
         _, feats, _, _, _ = flatten_points(b)
         it = iter(range(1 << 30))
+
+        def forward():
+            x = batches[next(it) % 4]
+            return task.forward(x, topo=topology(x))
+
         stages = {
-            "topology": lambda: build_topology(b, task.full_scale, task.num_planes),
+            "topology": lambda: topology(b),
             "2D branch": lambda: task.model2d(b.img, b.depth, b.img_indices,
                                               b.point_mask),
             "3D branch": lambda: task.model3d(feats, *topo),
-            "forward (4 batches rotating)":
-                lambda: task.forward(batches[next(it) % 4]),
+            "forward (4 batches rotating)": forward,
         }
         report(stages, REPS)
-    report(train_stages(task, dev), TRAIN_REPS)
+    report(train_stages(task, dev, slot_caps), TRAIN_REPS)
     print(subprocess.run(SMI, capture_output=True, text=True).stdout.strip())
     return 0
 

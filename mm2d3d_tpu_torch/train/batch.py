@@ -137,14 +137,23 @@ def default_slot_caps(num_levels: int, capacities: Tuple[int, ...]):
     return tuple(specs)
 
 
-def build_topology(batch: PointBatch, full_scale: int, num_levels: int
-                   ) -> Tuple[VoxelGrid, Hierarchy]:
-    """Voxelize the batch and build the sparse U-Net hierarchy, with the
-    default capacities and slot specs."""
+def build_topology(batch: PointBatch, full_scale: int, num_levels: int,
+                   capacities: Optional[Tuple[int, ...]] = None,
+                   slot_caps="default") -> Tuple[VoxelGrid, Hierarchy]:
+    """Voxelize the batch and build the sparse U-Net hierarchy, as the JAX
+    `build_topology`: `capacities` default to `default_capacities`;
+    `slot_caps="default"` takes `default_slot_caps`, None builds no slot
+    tables (every submanifold conv on the dense 27-tap path, K6), and a
+    per-level sequence takes any form `ops.hierarchy.build_hierarchy`
+    takes."""
     coords, _, _, mask, bidx = flatten_points(batch)
-    capacities = default_capacities(coords.shape[0], num_levels,
-                                    batch_size=batch.batch_size)
-    slot_caps = default_slot_caps(num_levels, capacities)
+    if capacities is None:
+        capacities = default_capacities(coords.shape[0], num_levels,
+                                        batch_size=batch.batch_size)
+    if isinstance(slot_caps, str):
+        if slot_caps != "default":
+            raise ValueError(f"unknown slot caps {slot_caps!r}")
+        slot_caps = default_slot_caps(num_levels, capacities)
     grid = voxelize(coords, bidx, mask, full_scale, capacity=capacities[0],
                     presorted=batch.coords_sorted)
     hier = build_hierarchy(grid, num_levels, capacities, slot_caps,

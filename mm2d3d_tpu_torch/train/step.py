@@ -9,6 +9,13 @@ softmax ensemble that `__graft_entry__.entry` returns; `eval_step` adds the
 eval losses and the 2D / 3D / ensemble confusion-matrix updates.  Both run
 in eval mode under `torch.inference_mode()`.  Log keys are the JAX
 package's.
+
+Every entry point runs on the CUDA device unless the caller passes
+`device="cpu"`; without a CUDA device it raises instead of carrying on on
+the CPU.  `train_step`, `train_inputs`, `forward` and `eval_step` take a
+precomputed topology (`train.batch.build_topology`), as the JAX package's
+`train_step` / `eval_step` do: with `slot_caps=None` it reaches the dense
+27-tap submanifold convolution (K6) on every level.
 """
 
 from __future__ import annotations
@@ -30,6 +37,15 @@ from .metrics import confusion_matrix_update
 from .optim import make_optimizer, make_schedule
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; refuses a CUDA device where none exists."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU")
+    return device
+
+
 @dataclass
 class EvalMetrics:
     """Confusion-matrix accumulators [gt, pred] for 2D / 3D / ensemble."""
@@ -39,7 +55,9 @@ class EvalMetrics:
     cm_avg: torch.Tensor
 
     @classmethod
-    def create(cls, num_classes: int, device="cpu") -> "EvalMetrics":
+    def create(cls, num_classes: int, device="cuda") -> "EvalMetrics":
+        device = resolve_device(device)
+
         def z():
             return torch.zeros((num_classes, num_classes), dtype=torch.int32,
                                device=device)
@@ -77,7 +95,9 @@ class MM2D3DTask:
     `optimizer_2d` / `optimizer_3d` are reference-style configs for
     `optim.make_optimizer` (default AdamW, lr 1e-3, constant); the
     optimizers start afresh whenever weights are loaded (`init_params`,
-    `load_flax`), as a new JAX `TrainState` does."""
+    `load_flax`), as a new JAX `TrainState` does.  `model2d` / `model3d`
+    replace the default networks, as in the JAX task (for example
+    `Net2DSeg(..., fused_head=True)`, the fused head through K5)."""
 
     def __init__(self, num_classes: int, class_weights=None,
                  loss_composer=None, lambda_xm_src: float = 1.0,
@@ -86,22 +106,26 @@ class MM2D3DTask:
                  block_reps: int = 1, in_channels_3d: int = 3,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  optimizer_2d: Optional[Dict[str, Any]] = None,
-                 optimizer_3d: Optional[Dict[str, Any]] = None, device="cpu"):
+                 optimizer_3d: Optional[Dict[str, Any]] = None,
+                 model2d: Optional[nn.Module] = None,
+                 model3d: Optional[nn.Module] = None, device="cuda"):
         self.num_classes = num_classes
         self.loss_composer = loss_composer
         self.lambda_xm_src = lambda_xm_src
         self.lambda_xm_trg = lambda_xm_trg
         self.full_scale = full_scale
         self.num_planes = num_planes
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.class_weights = (
             None if class_weights is None
             else torch.tensor(class_weights, dtype=torch.float32, device=self.device)
         )
-        self.model2d = Net2DSeg(num_classes, compute_dtype)
-        self.model3d = Net3DSeg(num_classes, in_channels=in_channels_3d, m=m,
-                                block_reps=block_reps, num_planes=num_planes,
-                                compute_dtype=compute_dtype)
+        self.model2d = (Net2DSeg(num_classes, compute_dtype)
+                        if model2d is None else model2d)
+        self.model3d = (Net3DSeg(num_classes, in_channels=in_channels_3d, m=m,
+                                 block_reps=block_reps, num_planes=num_planes,
+                                 compute_dtype=compute_dtype)
+                        if model3d is None else model3d)
         for net in (self.model2d, self.model3d):
             net.eval()
         self.optimizer_2d = optimizer_2d or {"name": "adamw", "lr": 1e-3}
@@ -148,11 +172,12 @@ class MM2D3DTask:
 
     # -- forward ---------------------------------------------------------
 
-    def _forward(self, batch: PointBatch):
+    def _forward(self, batch: PointBatch, topo=None):
         self.model2d.eval()
         self.model3d.eval()
         batch = prepare_device_batch(batch)
-        topo = build_topology(batch, self.full_scale, self.num_planes)
+        if topo is None:
+            topo = build_topology(batch, self.full_scale, self.num_planes)
         _, feats, labels, mask, _ = flatten_points(batch)
         p2, _, _ = self.model2d(batch.img, batch.depth, batch.img_indices,
                                 batch.point_mask)
@@ -163,10 +188,12 @@ class MM2D3DTask:
         return topo, p2, flat2, flat3, ens, labels, mask
 
     @torch.inference_mode()
-    def forward(self, batch: PointBatch) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: PointBatch, topo=None) -> Dict[str, torch.Tensor]:
         """{"seg_logit_2d": (B, N, nc) lifted 2D logits, "seg_logit_3d":
-        (B*N, nc), "ensemble": (B*N, nc) mean of the two softmaxes}."""
-        _, p2, flat2, flat3, ens, _, _ = self._forward(batch)
+        (B*N, nc), "ensemble": (B*N, nc) mean of the two softmaxes}.
+        `topo` is a precomputed (grid, hierarchy) of this batch, or None to
+        build the default one."""
+        _, p2, flat2, flat3, ens, _, _ = self._forward(batch, topo)
         return {"seg_logit_2d": p2["seg_logit"], "seg_logit_3d": flat3,
                 "ensemble": ens}
 
@@ -192,14 +219,17 @@ class MM2D3DTask:
 
     # -- train -----------------------------------------------------------
 
-    def train_inputs(self, src: PointBatch, trg: PointBatch):
-        """The batches prepared and both topologies built: the first stage
-        of `train_step` -> (src, trg, topo_src, topo_trg)."""
+    def train_inputs(self, src: PointBatch, trg: PointBatch, topo_src=None,
+                     topo_trg=None):
+        """The batches prepared and both topologies built (unless given):
+        the first stage of `train_step` -> (src, trg, topo_src, topo_trg)."""
         src = prepare_device_batch(src)
         trg = prepare_device_batch(trg)
         with torch.no_grad():  # not inference_mode: the backward reads the tables
-            topo_src = build_topology(src, self.full_scale, self.num_planes)
-            topo_trg = build_topology(trg, self.full_scale, self.num_planes)
+            if topo_src is None:
+                topo_src = build_topology(src, self.full_scale, self.num_planes)
+            if topo_trg is None:
+                topo_trg = build_topology(trg, self.full_scale, self.num_planes)
         return src, trg, topo_src, topo_trg
 
     def train_losses(self, src: PointBatch, trg: PointBatch, topo_src, topo_trg,
@@ -250,11 +280,15 @@ class MM2D3DTask:
         }
 
     def train_step(self, src: PointBatch, trg: PointBatch,
-                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+                   generator: torch.Generator, topo_src=None, topo_trg=None,
+                   ) -> Dict[str, torch.Tensor]:
         """One UDA step on a source and a target batch; updates the weights,
         the running statistics and the optimizers in place and returns the
-        logs.  `generator` (on the task's device) feeds the dropout."""
-        src, trg, topo_src, topo_trg = self.train_inputs(src, trg)
+        logs.  `generator` (on the task's device) feeds the dropout;
+        `topo_src` / `topo_trg` are precomputed topologies of the two
+        batches, or None to build the default ones."""
+        src, trg, topo_src, topo_trg = self.train_inputs(src, trg, topo_src,
+                                                         topo_trg)
         total, losses = self.train_losses(src, trg, topo_src, topo_trg, generator)
         self.opt2d.zero_grad(set_to_none=True)
         self.opt3d.zero_grad(set_to_none=True)
@@ -270,7 +304,8 @@ class MM2D3DTask:
         # hits dropped by the slot tables (void the gradients); 0 = healthy
         logs["train/nbr_slot_overflow"] = sum(
             lvl.slot_overflow.float()
-            for h in hiers for lvl in h.levels) + zero
+            for h in hiers for lvl in h.levels
+            if lvl.slot_overflow is not None) + zero
         if src.n_dropped is not None:
             logs["train/points_dropped"] = (
                 src.n_dropped.sum() + trg.n_dropped.sum()).float()
@@ -284,11 +319,12 @@ class MM2D3DTask:
 
     @torch.inference_mode()
     def eval_step(self, batch: PointBatch, metrics: Optional[EvalMetrics] = None,
-                  ) -> Tuple[EvalMetrics, Dict[str, torch.Tensor]]:
-        """One eval batch: losses + confusion-matrix updates."""
+                  topo=None) -> Tuple[EvalMetrics, Dict[str, torch.Tensor]]:
+        """One eval batch: losses + confusion-matrix updates.  `topo` is a
+        precomputed topology of the batch, or None to build the default one."""
         if metrics is None:
             metrics = EvalMetrics.create(self.num_classes, self.device)
-        (grid, hier), _, flat2, flat3, ens, labels, mask = self._forward(batch)
+        (grid, hier), _, flat2, flat3, ens, labels, mask = self._forward(batch, topo)
         new = EvalMetrics(
             cm_2d=confusion_matrix_update(metrics.cm_2d, flat2.argmax(-1), labels, mask),
             cm_3d=confusion_matrix_update(metrics.cm_3d, flat3.argmax(-1), labels, mask),
@@ -300,6 +336,7 @@ class MM2D3DTask:
             "valid_weight": self.seg_loss_weight(labels, mask),
             "nbr_slot_overflow": sum(
                 lvl.slot_overflow.float() for lvl in hier.levels
+                if lvl.slot_overflow is not None
             ) + torch.zeros((), device=self.device),
         }
         return new, logs

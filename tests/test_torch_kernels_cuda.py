@@ -1,10 +1,11 @@
 """The hand-written CUDA kernels of mm2d3d_tpu_torch against their plain
 PyTorch versions on the card, at edge shapes the flagship does not reach:
 ragged voxel counts, more than 128 output channels, Ci = 3 and 224, odd
-image sizes, empty inputs, NaN, and the inputs the kernels refuse; the
-autograd Functions around them (the sparse-conv adjoints, the stem pool's
-backward) on the card against the same Functions on the CPU; and the 2D
-branch's train-mode gradients on the card against the CPU's.
+image sizes and crops, empty inputs, NaN, and the inputs the kernels
+refuse; the autograd Functions around them (the sparse-conv adjoints, the
+dense form's included, the stem pool's and the fused head's backward) on
+the card against the same Functions on the CPU; and the 2D branch's
+train-mode gradients on the card against the CPU's.
 
 Needs a CUDA device (and nvcc to build the kernels); skips without one.  On
 a machine with a card and no JAX, run it without the repo's conftest.py
@@ -12,10 +13,10 @@ a machine with a card and no JAX, run it without the repo's conftest.py
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 
-K3 and K4 must be bit-identical to their plain versions; K1 and K2 within
-1e-4 * max|plain| (fp32 sums in another order), K2 bit-identical between
-two calls; the adjoints' gradients within 1e-4 * max|CPU| and the 2D
-branch's within 1e-3 of its largest CPU gradient (TF32 off).
+K3 and K4 must be bit-identical to their plain versions; K1, K2, K5 and K6
+within 1e-4 * max|plain| (fp32 sums in another order), K2 bit-identical
+between two calls; the adjoints' gradients within 1e-4 * max|CPU| and the
+2D branch's within 1e-3 of its largest CPU gradient (TF32 off).
 """
 
 import dataclasses
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 
 from mm2d3d_tpu_torch.ops import hierarchy as H
 from mm2d3d_tpu_torch.ops import spconv as S
-from mm2d3d_tpu_torch.ops.kernels import bandmm, bandmm_dw, maxpool, propagate
+from mm2d3d_tpu_torch.ops.kernels import bandmm, bandmm_dw, head2d, maxpool, propagate, tapsum
 from mm2d3d_tpu_torch.ops.voxelize import voxelize
 
 pytestmark = pytest.mark.cuda
@@ -201,7 +202,10 @@ def _hierarchies(dev):
     return out
 
 
-CONV_FORMS = ["subm_3tier", "subm_2tier", "subm_1tier", "down", "up"]
+CONV_FORMS = ["subm_3tier", "subm_2tier", "subm_1tier", "subm_dense", "down", "up"]
+NO_SLOTS = dict(slot_src=None, slot_tap=None, slot_overflow=None, slot_idx=None,
+                slot_src2=None, slot_tap2=None, slot_idxm=None, slot_invm=None,
+                slot_srcm=None, slot_tapm=None)
 
 
 @pytest.mark.parametrize("form", CONV_FORMS)
@@ -217,7 +221,10 @@ def test_conv_adjoints_on_card_match_cpu(dev, form):
             drop = dict(slot_idx=None, slot_src2=None, slot_tap2=None, slot_idxm=None,
                         slot_invm=None, slot_srcm=None, slot_tapm=None)
             lg, lc = (dataclasses.replace(x, **drop) for x in (lg, lc))
-        assert int(lc.slot_overflow) == 0
+        if form == "subm_dense":  # the dense 27-tap path: K6 both ways
+            lg, lc = (dataclasses.replace(x, **NO_SLOTS) for x in (lg, lc))
+        else:
+            assert int(lc.slot_overflow) == 0
         rows_in = rows_out = lc.capacity
         fn = {dev.type: lambda x, w: S.subm_conv3(x, lg, w, torch.float32),
               "cpu": lambda x, w: S.subm_conv3(x, lc, w, torch.float32)}
@@ -300,3 +307,123 @@ def test_net2dseg_gradients_on_card_match_cpu(dev, monkeypatch):
     for name, ref in grads["cpu"].items():
         err = float((grads[dev.type][name] - ref).abs().max())
         assert err <= 1e-3 * scale, (name, err, scale)
+
+
+TAPSUM = {
+    # name: (K, V, Ci, Co)
+    "ragged_v_ci3_co12": (27, 1001, 3, 12),
+    "ragged_v_two_co_blocks": (27, 777, 16, 40),
+    "ci192_co96": (27, 300, 192, 96),
+    "ci112_co112": (27, 129, 112, 112),
+    "eight_taps": (8, 513, 48, 64),
+    "empty": (27, 0, 16, 16),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(TAPSUM))
+def test_tapsum_matches_plain_version(dev, case, dtype):
+    k, v, ci, co = TAPSUM[case]
+    gen = torch.Generator(device=dev).manual_seed(v + ci)
+    g = torch.randn((k, v, ci), generator=gen, device=dev).to(dtype)
+    g[:, ::3] = 0  # the pad row's zeros, as a gather of missing taps gives
+    w = (0.1 * torch.randn((k, ci, co), generator=gen, device=dev)).to(dtype)
+    before = tapsum.KERNEL.launches
+    out = tapsum.tapsum(g, w)
+    assert tapsum.KERNEL.launches == before + 1
+    ref = tapsum.tapsum_ref(g, w)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (v, co)
+    if v:
+        err = float((out - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), err
+
+
+def test_tapsum_refuses_what_it_cannot_take(dev):
+    g = torch.randn(27, 64, 16, device=dev)
+    w = torch.randn(27, 16, 8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tapsum.tapsum(g.transpose(0, 1).contiguous().transpose(0, 1), w)
+    with pytest.raises(TypeError):
+        tapsum.tapsum(g.bfloat16(), w)
+    with pytest.raises(ValueError, match="several devices"):
+        tapsum.tapsum(g, w.cpu())
+
+
+HEAD = {
+    # name: (b, hp, wp, h_real, w_real, cins, c2); the first three are
+    # tests/test_pallas.py's boundary shapes
+    "odd_crop_both_dims": (1, 48, 32, 37, 25, (8, 16, 8), 8),
+    "single_strip_no_crop": (2, 16, 16, 16, 16, (8,), 8),
+    "just_past_one_strip": (1, 32, 24, 17, 24, (16, 8), 16),
+    "flagship_crop_c2_12": (2, 240, 72, 225, 70, (64, 64, 64), 12),
+    "c2_20_two_oc_blocks": (1, 32, 40, 30, 33, (24, 8, 16), 20),
+}
+
+
+@pytest.mark.parametrize("dtypes", ["fp32", "bf16_inputs", "fp32_rounded"])
+@pytest.mark.parametrize("case", sorted(HEAD))
+def test_head_pool_matches_plain_version(dev, case, dtypes, monkeypatch):
+    """fp32 pieces; bf16 pieces; fp32 pieces rounded to bf16 as they load
+    (the flagship's form: its BatchNorms hand the head fp32)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # the plain conv
+    b, hp, wp, h_real, w_real, cins, c2 = HEAD[case]
+    gen = torch.Generator(device=dev).manual_seed(hp + wp + c2)
+    xs = [0.5 * torch.randn((b, hp, wp, c), generator=gen, device=dev) for c in cins]
+    w12 = 0.2 * torch.randn((3, 3, sum(cins), c2), generator=gen, device=dev)
+    b12 = torch.randn((c2,), generator=gen, device=dev)
+    cd = None
+    if dtypes == "bf16_inputs":
+        xs = [x.bfloat16() for x in xs]
+    elif dtypes == "fp32_rounded":
+        cd = torch.bfloat16
+    before = head2d.KERNEL.launches
+    out = head2d.head_pool(xs, w12, b12, h_real, w_real, cd)
+    assert head2d.KERNEL.launches == before + 1
+    ref = head2d.head_pool_ref(xs, w12, b12, h_real, w_real, cd)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (b, h_real, w_real, c2)
+    err = float((out - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err
+
+
+def test_head_pool_reads_the_rows_below_the_crop(dev):
+    """The conv's zero padding is at the padded map's edge: changing the
+    first row under the crop moves the last real output row."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xs = [torch.randn((1, 32, 16, 8), generator=gen, device=dev)]
+    w12 = torch.randn((3, 3, 8, 8), generator=gen, device=dev)
+    b12 = torch.zeros(8, device=dev)
+    a = head2d.head_pool(xs, w12, b12, 30, 16)
+    xs[0][:, 30] += 1.0
+    b = head2d.head_pool(xs, w12, b12, 30, 16)
+    assert not torch.equal(a[:, 29], b[:, 29])
+    assert torch.equal(a[:, :27], b[:, :27])
+
+
+def test_head_pool_backward_on_card_matches_cpu(dev, monkeypatch):
+    """HeadPool's backward on channels_last pieces (NHWC views of NCHW
+    tensors, as `Net2DSeg(fused_head=True)` hands them), card vs CPU, fp32:
+    the layout at which CUDA's avg_pool2d backward goes wrong."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    r = np.random.RandomState(4)
+    b, hp, wp, h_real, w_real, cins, c2 = 2, 48, 40, 45, 37, (16, 16, 16), 12
+    xs = [r.randn(b, c, hp, wp).astype(np.float32) for c in cins]
+    w12 = (0.2 * r.randn(3, 3, sum(cins), c2)).astype(np.float32)
+    b12 = r.randn(c2).astype(np.float32)
+    cot = r.randn(b, h_real, w_real, c2).astype(np.float32)
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        nchw = [torch.from_numpy(x).to(d).contiguous(memory_format=torch.channels_last)
+                .requires_grad_(True) for x in xs]
+        w = torch.from_numpy(w12).to(d).requires_grad_(True)
+        bb = torch.from_numpy(b12).to(d).requires_grad_(True)
+        pieces = [x.permute(0, 2, 3, 1) for x in nchw]
+        assert all(p.is_contiguous() for p in pieces)
+        head2d.HeadPool.apply(h_real, w_real, torch.float32, w, bb, *pieces).backward(
+            torch.from_numpy(cot).to(d))
+        grads[d.type] = [t.grad.cpu() for t in (w, bb, *nchw)]
+    for name, a, ref in zip(("w12", "b12", "x0", "x1", "x2"), grads[dev.type],
+                            grads["cpu"]):
+        err = float((a - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), (name, err)

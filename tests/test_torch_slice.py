@@ -50,7 +50,7 @@ def test_eval_slice_matches_jax():
         state, batch_j, EvalMetricsJax.create(task_j.num_classes))
     fwd_j = jax.jit(lambda s, b: _jax_forward(task_j, s, b))(state, batch_j)
 
-    task = flagship_task(compute_dtype=torch.float32, **SMALL)
+    task = flagship_task(compute_dtype=torch.float32, device="cpu", **SMALL)
     task.load_flax(to_numpy_tree(state.params2d), to_numpy_tree(state.stats2d),
                    to_numpy_tree(state.params3d), to_numpy_tree(state.stats3d))
     batch = make_batch(np.random.RandomState(0), **BATCH)

@@ -81,8 +81,8 @@ def test_port_imports_without_jax():
         "import mm2d3d_tpu_torch.train.optim, mm2d3d_tpu_torch.ops.image\n"
         "import mm2d3d_tpu_torch.tools.profile_forward\n"
         "from mm2d3d_tpu_torch.ops import kernels\n"
-        "assert sorted(kernels.all_kernels()) == ['bandmm', 'bandmm_dw', 'maxpool', "
-        "'propagate']\n"
+        "assert sorted(kernels.all_kernels()) == ['bandmm', 'bandmm_dw', 'head2d', "
+        "'maxpool', 'propagate', 'tapsum']\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)

@@ -116,7 +116,7 @@ def trajectories():
                                                state.params3d, state.stats3d))
 
     task = flagship_task(compute_dtype=torch.float32, optimizer_2d=OPTIMIZER,
-                         optimizer_3d=OPTIMIZER, **SMALL)
+                         optimizer_3d=OPTIMIZER, device="cpu", **SMALL)
     task.load_flax(*init)
     for enc in (task.model2d.rgb_backbone, task.model2d.depth_backbone):
         enc.dropout_rate = 0.0

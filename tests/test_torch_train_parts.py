@@ -298,7 +298,8 @@ def test_gradient_accumulation_is_refused():
 
 
 def test_eval_train_eval_in_one_process():
-    small = dict(compute_dtype=torch.float32, full_scale=256, num_planes=3, m=8)
+    small = dict(compute_dtype=torch.float32, full_scale=256, num_planes=3, m=8,
+                 device="cpu")
     kw = dict(batch_size=2, height=32, width=48, n_points=128, full_scale=256,
               wire=True)
     src, trg = (make_batch(np.random.RandomState(s), **kw) for s in (0, 1))
