@@ -146,7 +146,7 @@ class Results:
     def add(self, kernel, case, err, tol, ms, plain_ms, bnd, library_ms=None):
         self.cases.append((kernel, case, err, tol, ms, plain_ms, *bnd, library_ms))
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        log(f"  {kernel:9s} {case:42s} max|d|={err:.3e} (tol {tol:.1e})  "
+        log(f"  {kernel:9s} {case:52s} max|d|={err:.3e} (tol {tol:.1e})  "
             f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bnd[0]:.4f} ms "
             f"({bnd[1]})  library {lib}")
         if not err <= tol:
@@ -154,6 +154,16 @@ class Results:
 
     def max_err(self, kernel):
         return max(c[2] for c in self.cases if c[0] == kernel)
+
+    def slowest_vs_library(self, kernel):
+        """{"case", "ms", "library_ms"} of the kernel's case with the largest
+        ratio of its time to the library call's, or None without a library
+        call."""
+        cases = [c for c in self.cases if c[0] == kernel and c[8] is not None]
+        if not cases:
+            return None
+        c = max(cases, key=lambda c: c[4] / c[8])
+        return {"case": c[1], "ms": c[4], "library_ms": c[8]}
 
 
 def check_k3(res: Results, dev) -> None:
@@ -346,33 +356,51 @@ def dense_topology(batch):
         return build_topology(batch, 4096, 7, slot_caps=None)
 
 
+def dense_shapes():
+    """(name, level, Ci, Co) of the dense path's 28 contractions: the 14
+    submanifold convs of the flagship forward (input conv, 7 encoder and 6
+    decoder blocks, m = 16) and their input gradients, which contract the
+    flipped weights (Ci and Co swapped)."""
+    m, n = 16, 7
+    fwd = ([("input conv", 0, 3, m)]
+           + [(f"enc L{l}", l, m * (l + 1), m * (l + 1)) for l in range(n)]
+           + [(f"dec L{l} (concat)", l, 2 * m * (l + 1), m * (l + 1))
+              for l in range(n - 1)])
+    return ([(f"{name} fwd", l, ci, co) for name, l, ci, co in fwd]
+            + [(f"{name} adjoint", l, co, ci) for name, l, ci, co in fwd])
+
+
 def check_k6(res: Results, dev) -> None:
-    """K6, bf16 and fp32, at the five shapes of the dense path: the
-    neighbourhoods of random features gathered by a batch-8 flagship
-    topology's own tables (so missing taps are the pad row's zeros)."""
-    from mm2d3d_tpu_torch.ops.kernels.tapsum import tapsum, tapsum_ref
+    """K6, bf16 and fp32, at the 28 shapes of the dense path at batch 8:
+    the neighbourhoods of random features gathered by a batch-8 flagship
+    topology's own tables (so missing taps are the pad row's zeros).  Two
+    calls must give the same bits (the split-K partials are summed in a
+    fixed order)."""
+    from mm2d3d_tpu_torch.ops.kernels.tapsum import tapsum, tapsum_plan, tapsum_ref
 
     _, hier = dense_topology(flagship_batch(0, BATCH, dev))
     gen = torch.Generator(device=dev).manual_seed(6)
-    shapes = (("input conv Ci=3", 0, 3, 16), ("enc L0 Ci=16", 0, 16, 16),
-              ("dec L0 (concat) Ci=32", 0, 32, 16),
-              ("dec L5 (concat) Ci=192", 5, 192, 96), ("enc L6 Ci=112", 6, 112, 112))
-    for name, l, ci, co in shapes:
+    for name, l, ci, co in dense_shapes():
         lev = hier.levels[l]
         x = torch.randn((lev.capacity, ci), generator=gen, device=dev)
         x = torch.cat([x, x.new_zeros((1, ci))])[lev.nbr.long()]  # (27, V, Ci)
         w = 0.1 * torch.randn((27, ci, co), generator=gen, device=dev)
         for dt in (torch.bfloat16, torch.float32):
             g, wd = x.to(dt), w.to(dt)
-            out, ref = tapsum(g, wd), tapsum_ref(g, wd)
+            out, again, ref = tapsum(g, wd), tapsum(g, wd), tapsum_ref(g, wd)
+            if not torch.equal(out, again):
+                raise AssertionError(f"K6 {name} {dt}: two calls differ")
             err = float((out - ref).abs().max())
             tol = K1_REL_TOL * float(ref.abs().max())
             ms = cuda_ms(lambda: tapsum(g, wd))
             plain = cuda_ms(lambda: tapsum_ref(g, wd), reps=10)
             library = cuda_ms(lambda: torch.einsum("kvi,kio->vo", g, wd), reps=10)
             flops = 2 * g.shape[0] * g.shape[1] * ci * co
-            res.add("tapsum", f"{name} {str(dt)[6:]} V={g.shape[1]} Co={co}", err,
-                    tol, ms, plain, bound(nbytes(g, wd, out), flops, dt), library)
+            plan = tapsum_plan(*g.shape, co, dt)
+            res.add("tapsum", f"{name} Ci={ci} Co={co} {str(dt)[6:]} V={g.shape[1]} "
+                    f"S={plan.splits}", err, tol, ms, plain,
+                    bound(nbytes(g, wd, out), flops, dt), library)
+        del x, g, wd, out, again, ref
 
 
 def check_k5(res: Results, dev) -> None:
@@ -382,7 +410,7 @@ def check_k5(res: Results, dev) -> None:
     boundary shapes of tests/test_pallas.py.  The yardstick is the port's
     unfused head: cuDNN's conv of the concatenated pieces, then avg_pool2d
     (two calls; the concat is made beforehand)."""
-    from mm2d3d_tpu_torch.ops.kernels.head2d import head_pool, head_pool_ref
+    from mm2d3d_tpu_torch.ops.kernels.head2d import head_pool, head_pool_ref, launch_passes
 
     gen = torch.Generator(device=dev).manual_seed(5)
     cases = ((f"({BATCH}, 240, 400, 64)x3", BATCH, 240, 400, 225, 400, (64, 64, 64), 12),
@@ -413,6 +441,16 @@ def check_k5(res: Results, dev) -> None:
             flops = 2 * b * h * w * 9 * sum(cins) * c2 + 25 * b * h * w * c2
             res.add("head2d", f"{name} {str(cd)[6:]}", err, tol, ms, plain,
                     bound(nbytes(*xs, w12, b12, out), flops, cd), library)
+            # the two passes alone: the conv (+ bias, crop) into the fp32
+            # scratch, and the 5x5 pool of the scratch
+            y, _ = launch_passes(xs, w12, b12, h, w, cd, passes=1)
+            conv_ms = cuda_ms(lambda: launch_passes(xs, w12, b12, h, w, cd, passes=1),
+                              reps=10)
+            pool_ms = cuda_ms(lambda: launch_passes(xs, w12, b12, h, w, cd, passes=2,
+                                                    y=y), reps=10)
+            log(f"  head2d    {name} {str(cd)[6:]}: pass 1 (conv) {conv_ms:.4f} ms, "
+                f"pass 2 (pool) {pool_ms:.4f} ms")
+            del y
 
 
 # --------------------------------------------------------------------------
@@ -1010,7 +1048,7 @@ def main() -> int:
     main_case = {"propagate": "L0 ", "maxpool": f"({BATCH}, 240, 400, 64) float32",
                  "bandmm": "enc L0 tier1+center H=3 bfloat16",
                  "bandmm_dw": "enc L0 tier1+center H=3 bfloat16",
-                 "tapsum": "enc L0 Ci=16 bfloat16",
+                 "tapsum": "enc L0 fwd Ci=16 Co=16 bfloat16",
                  "head2d": f"({BATCH}, 240, 400, 64)x3 bfloat16"}
     # each kernel's launches on the path it runs on: the eval forward of
     # phase 4 (K1, K3, K4), the train step of phase 6 (K2), the opt-in eval
@@ -1029,6 +1067,7 @@ def main() -> int:
             "replaces": k.replaces, "launches": n,
             "max_abs_err": res.max_err(name), "ms": case[4], "plain_ms": case[5],
             "bound_ms": case[6], "bound_by": case[7], "library_ms": case[8],
+            "slowest_vs_library": res.slowest_vs_library(name),
         })
     log(f"slice: {slice_ms:.2f} ms/batch of {BATCH}, {BATCH * 1e3 / slice_ms:.1f} scans/s")
     log(f"train: {train_ms:.2f} ms/step of 2 x {BATCH}, "

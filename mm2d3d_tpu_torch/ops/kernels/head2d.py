@@ -7,7 +7,8 @@ Port of `mm2d3d_tpu/ops/pallas/head2d.py::head_pool`:
     out = avg_pool5x5(y), count_include_pad            -> (B, h_real, w_real, C2)
 
 The three decoder-tail pieces are never concatenated.  CUDA kernel:
-`mm2d3d_tpu_torch/csrc/head2d.cu`; plain version: `head_pool_ref`.
+`mm2d3d_tpu_torch/csrc/head2d.cu` (bf16 compute on tensor cores, fp32 on
+CUDA cores); plain version: `head_pool_ref`.
 `HeadPool` is the differentiable form: K5 forward, and the backward the JAX
 package gives its kernel, autograd of the plain version on the saved inputs
 (`_head_pool_bwd` takes `jax.vjp` of `_head_pool_ref`).
@@ -27,18 +28,21 @@ from . import (
 
 _STRIP = 16  # the TPU kernel's rows per grid step, kept in `supports`
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# padded input channels whose bf16 weights (9 x Kp x 16 x 2 B) fit in a
+# block's shared memory beside the two halo buffers (csrc/head2d.cu)
+_MAX_KP = 640
 
 
 def _bind(lib):
     lib.head_pool.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
     lib.head_pool.restype = ctypes.c_int
 
 
 KERNEL = register(Kernel(
-    "head2d", ("head2d.cu", "common.cuh"), _bind,
+    "head2d", ("head2d.cu", "common.cuh", "mma.cuh"), _bind,
     replaces="mm2d3d_tpu/ops/pallas/head2d.py:75",
 ))
 
@@ -83,21 +87,10 @@ def head_pool_ref(inputs: Sequence[torch.Tensor], w12: torch.Tensor,
     return _shift_sum5(_shift_sum5(y, 1), 2) * (1.0 / 25.0)
 
 
-def head_pool(inputs: Sequence[torch.Tensor], w12: torch.Tensor,
-              b12: torch.Tensor, h_real: int, w_real: int,
-              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Fused conv3x3 + bias + crop + 5x5 avg-pool -> (B, h_real, w_real, C2)
-    fp32.
-
-    Args:
-      inputs: one to three (B, Hp, Wp, C_p) NHWC-contiguous pieces of the
-        head's input, fp32 or bf16, all of one dtype.
-      w12: (3, 3, sum C_p, C2) composed weights (HWIO); b12: (C2,).
-      h_real, w_real: the crop, at most (Hp, Wp).
-      compute_dtype: the type the inputs and w12 are rounded to before they
-        multiply (default: the inputs' dtype); the sums are fp32.
-    """
-    inputs = list(inputs)
+def _check(inputs: Sequence[torch.Tensor], w12: torch.Tensor, b12: torch.Tensor,
+           h_real: int, w_real: int,
+           compute_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """Validate `head_pool`'s arguments; returns the compute dtype."""
     if not 1 <= len(inputs) <= 3:
         raise ValueError(f"1 to 3 input pieces, got {len(inputs)}")
     b, hp, wp = inputs[0].shape[:3]
@@ -118,27 +111,86 @@ def head_pool(inputs: Sequence[torch.Tensor], w12: torch.Tensor,
     cd = compute_dtype or inputs[0].dtype
     if cd not in _DTYPES:
         raise TypeError(f"unsupported compute dtype {cd}")
-    no_grad_inputs(*inputs, w12, b12)
-    if not on_cuda(*inputs, w12, b12):
-        return head_pool_ref(inputs, w12, b12, h_real, w_real, cd)
+    return cd
 
+
+def pack_weights(w12: torch.Tensor, cins: Sequence[int]) -> torch.Tensor:
+    """w12 (3, 3, sum C_p, C2) -> bf16 (ceil(C2 / 16), 9, Kp, 16), the
+    tensor-core pass's layout: each piece's channels zero-padded to a
+    multiple of 16 (Kp their sum), the output channels to 16 per block."""
+    c2 = w12.shape[-1]
+    n_oc = -(-c2 // 16)
+    wb = w12.to(torch.bfloat16)
+    if all(c % 16 == 0 for c in cins):  # the flagship's 3 x 64: one pad
+        w = F.pad(wb, (0, 16 * n_oc - c2))
+    else:
+        parts, c0 = [], 0
+        for c in cins:
+            parts.append(F.pad(wb[:, :, c0:c0 + c], (0, 16 * n_oc - c2, 0, (-c) % 16)))
+            c0 += c
+        w = torch.cat(parts, 2)
+    kp = w.shape[2]
+    return w.reshape(9, kp, n_oc, 16).permute(2, 0, 1, 3).contiguous()
+
+
+def launch_passes(inputs: Sequence[torch.Tensor], w12: torch.Tensor,
+                  b12: torch.Tensor, h_real: int, w_real: int, cd: torch.dtype,
+                  passes: int = 3, y: Optional[torch.Tensor] = None):
+    """Launch K5 on CUDA pieces (checked by `head_pool`): pass 1 (conv +
+    bias + crop into the fp32 scratch `y`) and/or pass 2 (the 5x5 pool of
+    `y`), `passes` = 1, 2 or 3.  Returns (y, out); `out` is written by pass
+    2 only.  Counts one launch per call.  bf16 compute runs pass 1 on
+    tensor cores, fp32 on CUDA cores."""
+    inputs = list(inputs)
     require_contiguous(**{f"inputs[{i}]": p for i, p in enumerate(inputs)})
+    b, hp, wp = inputs[0].shape[:3]
+    cins = [p.shape[-1] for p in inputs]
+    c2 = w12.shape[-1]
     dev = inputs[0].device
-    w = w12.to(cd).float().contiguous()
+    tensor_cores = cd == torch.bfloat16
+    if tensor_cores:
+        w = pack_weights(w12, cins)
+        if w.shape[2] > _MAX_KP:
+            raise ValueError(f"{w.shape[2]} padded input channels: the weights "
+                             f"outgrow shared memory (at most {_MAX_KP})")
+    else:
+        w = w12.float().contiguous()
     bias = b12.float().contiguous()
-    scratch = torch.empty((b, h_real, w_real, c2), dtype=torch.float32, device=dev)
-    out = torch.empty_like(scratch)
+    if y is None:
+        y = torch.empty((b, h_real, w_real, c2), dtype=torch.float32, device=dev)
+    out = torch.empty_like(y)
     xs = inputs + [None] * (3 - len(inputs))
     cs = cins + [0] * (3 - len(inputs))
-    round_bf16 = int(cd == torch.bfloat16 and inputs[0].dtype == torch.float32)
     lib = KERNEL.lib()
     KERNEL.launches += 1
     KERNEL.check(lib.head_pool(
-        *(ptr(x) for x in xs), *cs, ptr(w), ptr(bias), ptr(scratch), ptr(out),
-        b, hp, wp, h_real, w_real, c2, _DTYPES[inputs[0].dtype], round_bf16,
-        stream(),
+        *(ptr(x) for x in xs), *cs, ptr(w), ptr(bias), ptr(y), ptr(out),
+        b, hp, wp, h_real, w_real, c2, _DTYPES[inputs[0].dtype],
+        int(tensor_cores), passes, stream(),
     ))
-    return out
+    return y, out
+
+
+def head_pool(inputs: Sequence[torch.Tensor], w12: torch.Tensor,
+              b12: torch.Tensor, h_real: int, w_real: int,
+              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Fused conv3x3 + bias + crop + 5x5 avg-pool -> (B, h_real, w_real, C2)
+    fp32.
+
+    Args:
+      inputs: one to three (B, Hp, Wp, C_p) NHWC-contiguous pieces of the
+        head's input, fp32 or bf16, all of one dtype.
+      w12: (3, 3, sum C_p, C2) composed weights (HWIO); b12: (C2,).
+      h_real, w_real: the crop, at most (Hp, Wp).
+      compute_dtype: the type the inputs and w12 are rounded to before they
+        multiply (default: the inputs' dtype); the sums are fp32.
+    """
+    inputs = list(inputs)
+    cd = _check(inputs, w12, b12, h_real, w_real, compute_dtype)
+    no_grad_inputs(*inputs, w12, b12)
+    if not on_cuda(*inputs, w12, b12):
+        return head_pool_ref(inputs, w12, b12, h_real, w_real, cd)
+    return launch_passes(inputs, w12, b12, h_real, w_real, cd)[1]
 
 
 class HeadPool(torch.autograd.Function):

@@ -51,8 +51,8 @@ KINDS = (
     ("multi_tensor_apply", "optimizer"), ("apply_kernel", "K1 bandmm"),
     ("dw_partial_kernel", "K2 bandmm_dw"), ("dw_reduce_kernel", "K2 bandmm_dw"),
     ("propagate_kernel", "K3 propagate"),
-    ("maxpool_", "K4 maxpool"), ("head_conv_kernel", "K5 head2d"),
-    ("head_box_kernel", "K5 head2d"), ("tapsum_kernel", "K6 tapsum"),
+    ("maxpool_", "K4 maxpool"), ("head_conv_", "K5 head2d"),
+    ("head_box_kernel", "K5 head2d"), ("tapsum_", "K6 tapsum"),
     ("bn_fw", "cuDNN batch norm"),
     ("xmma", "cuDNN/cutlass conv"), ("cutlass", "cuDNN/cutlass conv"),
     ("conv", "cuDNN/cutlass conv"), ("gemm", "GEMM"),

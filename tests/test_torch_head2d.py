@@ -97,6 +97,38 @@ def test_head_pool_rounds_to_the_compute_dtype():
     assert not torch.equal(rounded, H.head_pool(t, w, bb, 15, 20))
 
 
+PACKED = dict(BOUNDARY, c2_20_two_oc_blocks=(1, 32, 40, 30, 33, (24, 8, 16), 20),
+              flagship_pieces=(1, 32, 48, 30, 45, (64, 64, 64), 12))
+
+
+@pytest.mark.parametrize("case", sorted(PACKED))
+def test_packed_weights_emulate_the_tensor_core_pass(case):
+    """The tensor-core pass's operands, emulated in fp32 on the CPU: each
+    piece zero-padded to whole 16-channel chunks and rounded to bf16, the
+    packed weights (`pack_weights`, (NB, 9, Kp, 16) bf16) unpacked to HWIO,
+    the conv's 16 * NB output channels cut to C2, then bias, crop and pool
+    give `head_pool_ref` in bf16 within 1e-5 * max|ref| (fp32 sums in
+    another order)."""
+    import torch.nn.functional as F
+
+    b, hp, wp, h_real, w_real, cins, c2 = PACKED[case]
+    xs, w12, b12 = _head_case(11, b, hp, wp, cins, c2)
+    t = [torch.from_numpy(x) for x in xs]
+    w, bb = torch.from_numpy(w12), torch.from_numpy(b12)
+    wpk = H.pack_weights(w, cins)
+    nb = -(-c2 // 16)
+    kp = sum(-(-c // 16) * 16 for c in cins)
+    assert wpk.shape == (nb, 9, kp, 16) and wpk.dtype == torch.bfloat16
+    hwio = wpk.float().permute(1, 2, 0, 3).reshape(3, 3, kp, nb * 16)
+    x = torch.cat([F.pad(p, (0, (-p.shape[-1]) % 16)) for p in t], -1)
+    x = x.bfloat16().float().permute(0, 3, 1, 2)
+    y = F.conv2d(x, hwio.permute(3, 2, 0, 1), padding=1)[:, :c2]
+    y = y[:, :, :h_real, :w_real].permute(0, 2, 3, 1) + bb
+    out = H._shift_sum5(H._shift_sum5(y, 1), 2) * (1.0 / 25.0)
+    ref = H.head_pool_ref(t, w, bb, h_real, w_real, torch.bfloat16)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
 SUPPORTS = [  # tests/test_pallas.py:186-190
     (32, 16, 32, 16, 8), (32, 16, 33, 16, 8), (32, 16, 32, 17, 8),
     (24, 16, 24, 16, 8), (32, 16, 0, 16, 8),

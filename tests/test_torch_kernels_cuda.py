@@ -14,8 +14,8 @@ a machine with a card and no JAX, run it without the repo's conftest.py
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 
 K3 and K4 must be bit-identical to their plain versions; K1, K2, K5 and K6
-within 1e-4 * max|plain| (fp32 sums in another order), K2 bit-identical
-between two calls; the adjoints' gradients within 1e-4 * max|CPU| and the
+within 1e-4 * max|plain| (fp32 sums in another order), K2 and K6
+bit-identical between two calls; the adjoints' gradients within 1e-4 * max|CPU| and the
 2D branch's within 1e-3 of its largest CPU gradient (TF32 off).
 """
 
@@ -317,13 +317,29 @@ TAPSUM = {
     "ci112_co112": (27, 129, 112, 112),
     "eight_taps": (8, 513, 48, 64),
     "empty": (27, 0, 16, 16),
+    # tile edges of the tensor-core kernel (64 voxels, 16-channel k steps)
+    "input_conv_adjoint_co3": (27, 1000, 16, 3),
+    "ci8_under_one_k_step": (27, 650, 8, 16),
+    "two_column_blocks_co192": (27, 500, 96, 192),
+    # the 128-voxel tile (V long enough that its tiles alone fill the card)
+    "long_tile_ragged_v": (27, 17000, 16, 16),
+    "long_tile_co3": (27, 17001, 16, 3),
+    "long_tile_ci48_co40": (27, 20000, 48, 40),
+    # split-K shapes of the flagship's deep levels (L5 decoder concat, L6)
+    "split_dec_l5_concat": (27, 4096, 192, 96),
+    "split_enc_l6": (27, 2048, 112, 112),
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(TAPSUM))
 def test_tapsum_matches_plain_version(dev, case, dtype):
+    """Within 1e-4 * max|plain|, and the same bits from two calls (the
+    split-K partials are summed in a fixed order, with no atomics)."""
     k, v, ci, co = TAPSUM[case]
+    if dtype == torch.bfloat16 and ci % 8 == 0 and v:
+        bm = tapsum.tapsum_plan(k, v, ci, co).bm
+        assert bm == (128 if case.startswith("long_tile") else 64), bm
     gen = torch.Generator(device=dev).manual_seed(v + ci)
     g = torch.randn((k, v, ci), generator=gen, device=dev).to(dtype)
     g[:, ::3] = 0  # the pad row's zeros, as a gather of missing taps gives
@@ -331,9 +347,11 @@ def test_tapsum_matches_plain_version(dev, case, dtype):
     before = tapsum.KERNEL.launches
     out = tapsum.tapsum(g, w)
     assert tapsum.KERNEL.launches == before + 1
+    again = tapsum.tapsum(g, w)
     ref = tapsum.tapsum_ref(g, w)
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and out.shape == (v, co)
+    assert torch.equal(out, again)
     if v:
         err = float((out - ref).abs().max())
         assert err <= 1e-4 * float(ref.abs().max()), err
@@ -346,6 +364,9 @@ def test_tapsum_refuses_what_it_cannot_take(dev):
         tapsum.tapsum(g.transpose(0, 1).contiguous().transpose(0, 1), w)
     with pytest.raises(TypeError):
         tapsum.tapsum(g.bfloat16(), w)
+    gb = torch.empty(27 * 64 * 16 + 1, dtype=torch.bfloat16, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        tapsum.tapsum(gb.view(27, 64, 16), w.bfloat16())
     with pytest.raises(ValueError, match="several devices"):
         tapsum.tapsum(g, w.cpu())
 
@@ -358,6 +379,9 @@ HEAD = {
     "just_past_one_strip": (1, 32, 24, 17, 24, (16, 8), 16),
     "flagship_crop_c2_12": (2, 240, 72, 225, 70, (64, 64, 64), 12),
     "c2_20_two_oc_blocks": (1, 32, 40, 30, 33, (24, 8, 16), 20),
+    # one row and one column past the tensor-core pass's 16 x 32 tiles
+    "crop_past_the_pixel_tile": (1, 48, 96, 33, 65, (16, 24), 12),
+    "flagship_batch1": (1, 240, 400, 225, 400, (64, 64, 64), 12),
 }
 
 
