@@ -30,21 +30,18 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 import torch.nn.functional as F
+
+from mm2d3d_tpu_torch.tools.kernel_cases import BATCH, cuda_ms, flagship_batch
 
 # cuBLAS's reproducible workspace, for the deterministic phases 7 and 9
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-BATCH = 8
-FLAGSHIP_BATCH = dict(height=225, width=400, n_points=8192, num_classes=6,
-                      full_scale=4096)
 K1_REL_TOL = 1e-4  # max |kernel - plain| <= 1e-4 * max |plain| (K1, K2, K5, K6)
 LOGIT_REL_TOL = 1e-3  # card vs CPU, fp32 forward and train step
 TIE_GAP = 1e-3
 COMPARE_BATCH = 2  # scans per domain of phase 7's card-vs-CPU train step
-SLEEP_CYCLES = 100_000_000  # ~50-300 ms of SM clock: longer than the queued calls' dispatch
 # H100 SXM data sheet (dense): HBM bytes/s, peak FLOP/s by input type (fp32
 # outside the tensor cores; TF32 is off in this script)
 HBM_BYTES_PER_S = 3.35e12
@@ -53,35 +50,6 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time per call of fn(), by CUDA events around `reps` calls,
-    median of 3 samples.  The calls are queued behind a sleep kernel, so
-    the host's dispatch between them is hidden and the events time the
-    device's work alone (a call that synchronises still waits its turn)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        samples.append(start.elapsed_time(end) / reps)
-    return statistics.median(samples)
-
-
-def flagship_batch(seed: int, batch_size: int, device):
-    from mm2d3d_tpu_torch.data.synthetic import make_batch
-
-    return make_batch(np.random.RandomState(seed), batch_size=batch_size,
-                      **FLAGSHIP_BATCH).to(device)
 
 
 # --------------------------------------------------------------------------
@@ -221,115 +189,70 @@ def check_k4(res: Results, dev) -> None:
                     bound(nbytes(x, out)), library)
 
 
+def slot_route(dt, ci, h, k) -> str:
+    from mm2d3d_tpu_torch.ops.kernels.bandmm import slot_tensor_cores
+
+    return "tensor cores" if slot_tensor_cores(dt, ci, h, k) else "CUDA cores"
+
+
+def slot_bound(xm, x_src, tap, other, out, k, dt):
+    """K1's and K2's bound at this data: the bytes of the slot rows that
+    hold a tap (an empty slot feeds no band and is never read), of xm,
+    tap, the weight (K1) or output gradient (K2) and the output, each once;
+    and the products of those rows."""
+    ci, co = x_src.shape[2], out.shape[-1]
+    filled = int(((tap >= 0) & (tap < k)).sum())
+    rows = filled + (0 if xm is None else xm.shape[0])
+    n_bytes = nbytes(xm, tap, other, out) + filled * ci * x_src.element_size()
+    return bound(n_bytes, 2 * rows * ci * co, dt)
+
+
 def check_k1(res: Results, dev) -> None:
-    """K1, bf16 and fp32, for every call form the slice makes at level 0,
-    and at level 5 for the widest ones: the deepest decoder's concat
-    (Ci = 2 x 96) in each of its tiers and the strided conv down to L6."""
+    """K1, bf16 and fp32, for every call form the slice makes at level 0
+    (the input conv's adjoint, Ci = 16 -> Co = 3, included), at level 5 for
+    the widest ones (the deepest decoder's concat, Ci = 2 x 96, in each of
+    its tiers; the strided conv down to L6, the up conv to L4), and at the
+    tensor-core kernel's edges (ragged V, two column blocks, H = 20 and 26,
+    a tile of misses, duplicate taps and tap 13 beside the centre, split
+    shapes).  Each form runs twice and must give the same bits; each case
+    names its route."""
     from mm2d3d_tpu_torch.ops.kernels.bandmm import slot_conv_apply, slot_conv_apply_ref
-    from mm2d3d_tpu_torch.train.batch import build_topology
+    from mm2d3d_tpu_torch.tools.kernel_cases import edge_forms, k1_forms
 
-    _, hier = build_topology(flagship_batch(0, BATCH, dev), 4096, 7)
-    g = torch.Generator(device=dev).manual_seed(1)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, device=dev)
-
-    def subm_forms(l, ci, co, name, every_tier):
-        lev = hier.levels[l]
-        v = lev.capacity
-        x = torch.cat([rnd(v, ci), torch.zeros((1, ci), device=dev)])
-        w = rnd(27, ci, co) * 0.1
-        xm = torch.where(lev.valid[:, None], x[:v], 0)
-        forms = [(f"{name} tier1+center H={lev.slot_src.shape[0]}",
-                  (xm, x[lev.slot_src.long()], lev.slot_tap, w))]
-        if every_tier and lev.slot_srcm is not None:
-            forms.append((f"{name} mid tier H={lev.slot_srcm.shape[0]}",
-                          (None, x[lev.slot_srcm.long()], lev.slot_tapm, w)))
-        if every_tier and lev.slot_src2 is not None:
-            forms.append((f"{name} heavy tier H={lev.slot_src2.shape[0]}",
-                          (None, x[lev.slot_src2.long()], lev.slot_tap2, w)))
-        return forms
-
-    def strided_form(l, ci, co):
-        off_id = hier.transitions[l].off_id
-        return (f"down L{l}->L{l + 1} K=8 H=1 {ci}->{co}",
-                (None, rnd(1, off_id.shape[0], ci), off_id[None].contiguous(),
-                 rnd(8, ci, co) * 0.1))
-
-    forms = (subm_forms(0, 3, 16, "input conv Ci=3", False)
-             + subm_forms(0, 16, 16, "enc L0", True)
-             + subm_forms(0, 32, 16, "dec L0 (concat)", False)
-             + [strided_form(0, 16, 32)]
-             + subm_forms(5, 192, 96, "dec L5 (concat)", True)
-             + [strided_form(5, 96, 112)])
+    forms = k1_forms(dev) + [(name, args[:4]) for name, args, _ in edge_forms(dev)]
     for dt in (torch.bfloat16, torch.float32):
         for name, (xm, xs, tap, w) in forms:
             args = (None if xm is None else xm.to(dt).contiguous(),
                     xs.to(dt).contiguous(), tap, w.to(dt).contiguous())
-            out = slot_conv_apply(*args)
+            out, again = slot_conv_apply(*args), slot_conv_apply(*args)
+            if not torch.equal(out, again):
+                raise AssertionError(f"K1 {name} {dt}: two calls differ")
             ref = slot_conv_apply_ref(*args)
             err = float((out - ref).abs().max())
             tol = K1_REL_TOL * float(ref.abs().max())
             ms = cuda_ms(lambda: slot_conv_apply(*args))
             plain = cuda_ms(lambda: slot_conv_apply_ref(*args), reps=10)
-            # the products this data needs: one per filled slot (and centre row)
-            rows = int((tap < w.shape[0]).sum()) + (0 if xm is None else xm.shape[0])
-            ci, co = w.shape[1:]
-            res.add("bandmm", f"{name} {str(dt)[6:]} V={xs.shape[1]}", err, tol,
-                    ms, plain, bound(nbytes(*args, out), 2 * rows * ci * co, dt))
+            k, ci, _ = w.shape
+            route = slot_route(dt, ci, xs.shape[0], k)
+            res.add("bandmm", f"{name} {str(dt)[6:]} V={xs.shape[1]} [{route}]", err,
+                    tol, ms, plain, slot_bound(*args, out, k, dt))
 
 
 def check_k2(res: Results, dev) -> None:
     """K2, bf16 and fp32, for every call form the train step makes: at level
     0 the input conv, the encoder's three tiers and the decoder concat; the
     strided conv L0 -> L1; at level 5 the decoder concat in each tier; the
-    strided conv L5 -> L6.  The mid and heavy tiers take the gradient at
-    their compacted rows, as the adjoint does.  Each form runs twice and
-    must give the same bits."""
+    strided conv L5 -> L6 and the up conv L5 -> L4; and the tensor-core
+    kernel's edges.  The mid and heavy tiers take the gradient at their
+    compacted rows, as the adjoint does.  Each form runs twice and must give
+    the same bits; each case names its route."""
     from mm2d3d_tpu_torch.ops.kernels.bandmm_dw import slot_conv_dw, slot_conv_dw_ref
-    from mm2d3d_tpu_torch.train.batch import build_topology
+    from mm2d3d_tpu_torch.tools.kernel_cases import edge_forms, k2_forms
 
-    _, hier = build_topology(flagship_batch(0, BATCH, dev), 4096, 7)
-    gen = torch.Generator(device=dev).manual_seed(2)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
-    def rows(x, idx):
-        return torch.cat([x, x.new_zeros((1, x.shape[1]))])[idx.long()]
-
-    def subm_forms(l, ci, co, name, every_tier):
-        lev = hier.levels[l]
-        v = lev.capacity
-        x = torch.cat([rnd(v, ci), torch.zeros((1, ci), device=dev)])
-        g = rnd(v, co)
-        xm = torch.where(lev.valid[:, None], x[:v], 0)
-        forms = [(f"{name} tier1+center H={lev.slot_src.shape[0]}",
-                  (xm, x[lev.slot_src.long()], lev.slot_tap, g, 27))]
-        if every_tier and lev.slot_srcm is not None:
-            forms.append((f"{name} mid tier H={lev.slot_srcm.shape[0]}",
-                          (None, x[lev.slot_srcm.long()], lev.slot_tapm,
-                           rows(g, lev.slot_idxm), 27)))
-        if every_tier and lev.slot_src2 is not None:
-            forms.append((f"{name} heavy tier H={lev.slot_src2.shape[0]}",
-                          (None, x[lev.slot_src2.long()], lev.slot_tap2,
-                           rows(g, lev.slot_idx), 27)))
-        return forms
-
-    def strided_form(l, ci, co):
-        off_id = hier.transitions[l].off_id
-        return (f"down L{l}->L{l + 1} K=8 H=1 {ci}->{co}",
-                (None, rnd(1, off_id.shape[0], ci), off_id[None].contiguous(),
-                 rnd(off_id.shape[0], co), 8))
-
-    forms = (subm_forms(0, 3, 16, "input conv Ci=3", False)
-             + subm_forms(0, 16, 16, "enc L0", True)
-             + subm_forms(0, 32, 16, "dec L0 (concat)", False)
-             + [strided_form(0, 16, 32)]
-             + subm_forms(5, 192, 96, "dec L5 (concat)", True)
-             + [strided_form(5, 96, 112)])
+    forms = k2_forms(dev) + [(name, (xm, xs, tap, g), k)
+                             for name, (xm, xs, tap, _, g), k in edge_forms(dev)]
     for dt in (torch.bfloat16, torch.float32):
-        for name, (xm, xs, tap, g, k) in forms:
+        for name, (xm, xs, tap, g), k in forms:
             args = (None if xm is None else xm.to(dt).contiguous(),
                     xs.to(dt).contiguous(), tap, g.to(dt).contiguous())
             out = slot_conv_dw(*args, k_taps=k)
@@ -341,10 +264,9 @@ def check_k2(res: Results, dev) -> None:
             tol = K1_REL_TOL * float(ref.abs().max())
             ms = cuda_ms(lambda: slot_conv_dw(*args, k_taps=k))
             plain = cuda_ms(lambda: slot_conv_dw_ref(*args, k_taps=k), reps=10)
-            rows = int((tap < k).sum()) + (0 if xm is None else xm.shape[0])
-            ci, co = xs.shape[2], g.shape[1]
-            res.add("bandmm_dw", f"{name} {str(dt)[6:]} V={xs.shape[1]}", err,
-                    tol, ms, plain, bound(nbytes(*args, out), 2 * rows * ci * co, dt))
+            route = slot_route(dt, xs.shape[2], xs.shape[0], k)
+            res.add("bandmm_dw", f"{name} {str(dt)[6:]} V={xs.shape[1]} [{route}]", err,
+                    tol, ms, plain, slot_bound(*args, out, k, dt))
 
 
 def dense_topology(batch):

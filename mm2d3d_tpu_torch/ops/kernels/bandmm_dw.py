@@ -5,28 +5,39 @@ Port of `mm2d3d_tpu/ops/pallas/bandmm.py::slot_conv_dw`:
     dW[k] = sum_{h, v : tap[h, v] = k} x_src[h, v]^T g[v]
             (+ xm^T g into row 13)                   -> (K, Ci, Co) fp32
 
-CUDA kernel: `mm2d3d_tpu_torch/csrc/bandmm_dw.cu` (per-chunk partial sums,
-then a fixed-order reduction: deterministic, no float atomics); plain
-version: `slot_conv_dw_ref`.
+CUDA kernel: `mm2d3d_tpu_torch/csrc/bandmm_dw.cu`; plain version:
+`slot_conv_dw_ref`.  Blocks sum chunks of voxels into fp32 partials, and a
+second pass adds the chunks in a fixed order: deterministic, no float
+atomics.  bf16 with Ci % 8 == 0 runs on tensor cores as E^T @ g with the
+TPU's banded matrix E built in shared memory (`bandmm.band_sources`), each
+block owning 64 rows (band, ci) of dW and one chunk (`dw_plan`); fp32 and
+Ci % 8 != 0 run on CUDA cores, one (ci, co) pair per thread.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import (
     Kernel, no_grad_inputs, on_cuda, ptr, register, require_contiguous, stream,
 )
-from .bandmm import CENTER
+from .bandmm import CENTER, slot_tensor_cores
+from .tapsum import column_tile
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# CUDA cores
 _THREADS = 256  # threads per block of the partial-sum pass, one (ci, co) each
 _TARGET_BLOCKS = 528  # four blocks per SM of an H100: chunks = this / tiles
 _MAX_SLOTS = 27  # slots staged per row (H, plus the centre): 42 KB of shared memory
 _MIN_ROWS = 64  # fewest voxel rows a chunk is given
+# tensor cores (csrc/bandmm_dw.cu)
+TC_ROWS = 64  # rows (band, ci) of dW per block
+TC_MIN_ROWS = 128  # fewest voxels a chunk is given: two stages of 64
+SEL_BYTES = 16384  # the band table: bands x voxels of a chunk, one byte each
+_TC_SMALL_DW = 16384  # K * Ci * Co of a dW whose partials are cheap
 
 
 def _bind(lib):
@@ -37,7 +48,7 @@ def _bind(lib):
 
 
 KERNEL = register(Kernel(
-    "bandmm_dw", ("bandmm_dw.cu", "common.cuh"), _bind,
+    "bandmm_dw", ("bandmm_dw.cu", "common.cuh", "mma.cuh", "bandsel.cuh"), _bind,
     replaces="mm2d3d_tpu/ops/pallas/bandmm.py:102",
 ))
 
@@ -63,17 +74,56 @@ def slot_conv_dw_ref(xm: Optional[torch.Tensor],
     return dw
 
 
-def _chunking(v: int, ci: int, co: int):
-    """(co_tile, rows_per_chunk, n_chunks) of the partial-sum pass: enough
-    chunks of voxel rows to give the card ~_TARGET_BLOCKS blocks.  A pure
-    function of the shapes, so the summation order is fixed."""
-    co_tile = 16 if co <= 16 else 32
-    tiles = -(-ci // (_THREADS // co_tile)) * -(-co // co_tile)
+class DwPlan(NamedTuple):
+    tile: int  # tensor cores: output channels per block; CUDA cores: threads along Co
+    rows: int  # voxels per chunk
+    chunks: int  # ceil(V / rows): the partials summed by the second pass
+
+
+def max_bands(ci: int, k: int) -> int:
+    """Bands that a tensor-core block's 64 rows of dW can touch."""
+    return min(k, (TC_ROWS - 1) // ci + 2)
+
+
+def dw_plan(k: int, v: int, h: int, ci: int, co: int,
+            dtype: torch.dtype = torch.bfloat16,
+            target: Optional[int] = None) -> DwPlan:
+    """The launch: blocks of dW rows x output channels x voxel chunks, with
+    enough chunks to give the card ~528 blocks (CUDA cores: (ci, co) pairs,
+    chunks of at least 64 voxels) or, on tensor cores (64 rows of K * Ci per
+    block, K6's column tile, chunks of at least 128 voxels whose band table
+    fits 16 KB), ~528 where dW is small (level 0: its partials are cheap)
+    and ~264 where it is not (the partials' traffic grows with the chunks;
+    `tools/slotconv_tiles.py` measured both; `target` sets a tensor-core
+    plan's block count for that probe).  A pure function of the shapes, so
+    the summation order is fixed."""
+    if slot_tensor_cores(dtype, ci, h, k):
+        bn = column_tile(co)
+        tiles = -(-k * ci // TC_ROWS) * -(-co // bn)
+        if target is None:
+            target = (_TARGET_BLOCKS if k * ci * co <= _TC_SMALL_DW
+                      else _TARGET_BLOCKS // 2)
+        min_rows, tile = TC_MIN_ROWS, bn
+        max_rows = SEL_BYTES // max_bands(ci, k)
+    else:
+        tile = 16 if co <= 16 else 32
+        tiles = -(-ci // (_THREADS // tile)) * -(-co // tile)
+        target, min_rows, max_rows = _TARGET_BLOCKS, _MIN_ROWS, v
     if v == 0:
-        return co_tile, _MIN_ROWS, 0
-    chunks = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-v // _MIN_ROWS)))
-    rows = -(-v // chunks)
-    return co_tile, rows, -(-v // rows)
+        return DwPlan(tile, min_rows, 0)
+    chunks = max(1, min(-(-target // tiles), -(-v // min_rows)))
+    rows = min(-(-v // chunks), max_rows)
+    return DwPlan(tile, rows, -(-v // rows))
+
+
+def partial_shape(plan: DwPlan, k: int, ci: int, co: int,
+                  on_tensor_cores: bool) -> Optional[Tuple[int, ...]]:
+    """The fp32 partials the wrapper allocates: (chunks, K, Ci, Co); None
+    where there are no chunks, or where the tensor-core kernel writes dW
+    straight (one chunk)."""
+    if plan.chunks == 0 or (on_tensor_cores and plan.chunks == 1):
+        return None
+    return (plan.chunks, k, ci, co)
 
 
 def slot_conv_dw(xm: Optional[torch.Tensor],
@@ -120,18 +170,22 @@ def slot_conv_dw(xm: Optional[torch.Tensor],
         return slot_conv_dw_ref(xm, x_src, tap, g, k_taps)
 
     require_contiguous(xm=xm, x_src=x_src, tap=tap, g=g)
-    if h + (xm is not None) > _MAX_SLOTS or k_taps > 27:
-        raise ValueError(f"H={h} slots (+ centre) or K={k_taps} beyond the kernel's "
-                         f"limits of {_MAX_SLOTS} and 27")
-    co_tile, rows, n_chunks = _chunking(v, ci, co)
-    partial = torch.empty((n_chunks, k_taps, ci, co), dtype=torch.float32,
-                          device=g.device)
+    tc = slot_tensor_cores(g.dtype, ci, h, k_taps)
+    if tc:
+        if any(t is not None and t.data_ptr() % 16 for t in (xm, x_src, g)):
+            raise ValueError("xm, x_src and g must be 16-byte aligned (cp.async)")
+    elif h + (xm is not None) > _MAX_SLOTS or k_taps > 27:
+        raise ValueError(f"H={h} slots (+ centre) or K={k_taps} beyond the CUDA-core "
+                         f"kernel's limits of {_MAX_SLOTS} and 27")
+    plan = dw_plan(k_taps, v, h, ci, co, g.dtype)
+    shape = partial_shape(plan, k_taps, ci, co, tc)
+    partial = (None if shape is None
+               else torch.empty(shape, dtype=torch.float32, device=g.device))
     out = torch.empty((k_taps, ci, co), dtype=torch.float32, device=g.device)
     lib = KERNEL.lib()
     KERNEL.launches += 1
     KERNEL.check(lib.slot_conv_dw(
         ptr(xm), ptr(x_src), ptr(tap), ptr(g), ptr(partial), ptr(out),
-        v, h, ci, co, k_taps, co_tile, rows, n_chunks, _DTYPES[g.dtype],
-        stream(),
+        v, h, ci, co, k_taps, *plan, _DTYPES[g.dtype], stream(),
     ))
     return out

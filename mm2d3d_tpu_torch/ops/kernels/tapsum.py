@@ -69,16 +69,23 @@ def tapsum_plan(k: int, v: int, ci: int, co: int,
     SM a block, when the tiles alone do not (the deep levels)."""
     if not tensor_cores(dtype, ci):
         return TapsumPlan(1, _SIMT_BM, 16 if co <= 16 else 32)
+    bn = column_tile(co)
+    n_col = -(-co // bn)
+    big, small = _TC_BMS
+    if -(-v // big) * n_col >= SMS:
+        return TapsumPlan(1, big, bn)
+    blocks = -(-v // small) * n_col
+    splits = min(k, -(-SMS // blocks)) if blocks > 0 else 1
+    return TapsumPlan(splits, small, bn)
+
+
+def column_tile(co: int) -> int:
+    """Output channels per tensor-core block: Co in 8-wide tiles, an even
+    number of them, spread evenly over ceil(Co / 128) column blocks."""
     tiles8 = max(1, -(-co // 8))
     n_col = -(-tiles8 // (_TC_MAX_BN // 8))
     nt = -(-tiles8 // n_col)
-    nt += nt % 2
-    big, small = _TC_BMS
-    if -(-v // big) * n_col >= SMS:
-        return TapsumPlan(1, big, 8 * nt)
-    blocks = -(-v // small) * n_col
-    splits = min(k, -(-SMS // blocks)) if blocks > 0 else 1
-    return TapsumPlan(splits, small, 8 * nt)
+    return 8 * (nt + nt % 2)
 
 
 def tap_groups(k: int, splits: int) -> List[Tuple[int, int]]:

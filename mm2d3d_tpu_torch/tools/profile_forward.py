@@ -48,8 +48,10 @@ SMI = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
 
 # kernel-name fragment -> kind, first match wins
 KINDS = (
-    ("multi_tensor_apply", "optimizer"), ("apply_kernel", "K1 bandmm"),
-    ("dw_partial_kernel", "K2 bandmm_dw"), ("dw_reduce_kernel", "K2 bandmm_dw"),
+    ("multi_tensor_apply", "optimizer"), ("bandmm_mma_kernel", "K1 bandmm"),
+    ("bandmm_reduce_kernel", "K1 bandmm"), ("apply_kernel", "K1 bandmm"),
+    ("dw_mma_kernel", "K2 bandmm_dw"), ("dw_partial_kernel", "K2 bandmm_dw"),
+    ("dw_reduce_kernel", "K2 bandmm_dw"),
     ("propagate_kernel", "K3 propagate"),
     ("maxpool_", "K4 maxpool"), ("head_conv_", "K5 head2d"),
     ("head_box_kernel", "K5 head2d"), ("tapsum_", "K6 tapsum"),

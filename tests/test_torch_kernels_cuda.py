@@ -14,7 +14,7 @@ a machine with a card and no JAX, run it without the repo's conftest.py
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 
 K3 and K4 must be bit-identical to their plain versions; K1, K2, K5 and K6
-within 1e-4 * max|plain| (fp32 sums in another order), K2 and K6
+within 1e-4 * max|plain| (fp32 sums in another order), K1, K2 and K6
 bit-identical between two calls; the adjoints' gradients within 1e-4 * max|CPU| and the
 2D branch's within 1e-3 of its largest CPU gradient (TF32 off).
 """
@@ -42,31 +42,50 @@ def dev():
     return torch.device("cuda")
 
 
-def _taps(r, h, v, k):
-    """Ascending random taps per column with ~30% misses (k); never the
-    centre for 27-tap tables."""
+def _taps(r, h, v, k, tap13=False, hole=0):
+    """Ascending random taps per column with ~30% misses (k), duplicates
+    among them; never the centre for 27-tap tables, unless `tap13` puts it
+    in slot 0 of every third column.  The first `hole` columns are all
+    misses."""
     t = np.sort(r.randint(0, k, size=(h, v)), axis=0)
     if k == 27:
         t[t == 13] = 14
     t[r.rand(h, v) < 0.3] = k
+    if tap13 and h:
+        t[0, ::3] = 13
+    t[:, :hole] = k
     return t.astype(np.int32)
 
 
 BANDMM = {
-    # name: (V, H, K, Ci, Co, with_xm)
-    "ragged_v_two_co_blocks": (1000, 4, 27, 16, 200, True),
-    "ci3_input_conv": (777, 3, 27, 3, 16, True),
-    "ci224_decoder_concat": (300, 5, 27, 224, 112, False),
-    "strided_k8": (513, 1, 8, 48, 64, False),
-    "centre_only": (130, 0, 27, 8, 24, True),
-    "empty": (0, 3, 27, 16, 16, True),
+    # name: (V, H, K, Ci, Co, with_xm, tap options)
+    "ragged_v_two_co_blocks": (1000, 4, 27, 16, 200, True, {}),
+    "ci3_input_conv": (777, 3, 27, 3, 16, True, {}),
+    "ci224_decoder_concat": (300, 5, 27, 224, 112, False, {}),
+    "strided_k8": (513, 1, 8, 48, 64, False, {}),
+    "centre_only": (130, 0, 27, 8, 24, True, {}),
+    "empty": (0, 3, 27, 16, 16, True, {}),
+    # the tensor-core kernel's tile and split edges
+    "input_conv_adjoint_co3": (5000, 3, 27, 16, 3, True, {}),
+    "up_conv_l5_to_l4": (8192, 1, 8, 96, 80, False, {}),
+    "long_tile_ragged_v": (17001, 3, 27, 16, 16, True, {}),
+    "heavy_h20_split": (2049, 20, 27, 16, 16, False, {}),
+    "h26": (1000, 26, 27, 24, 40, False, {}),
+    "tile_of_misses": (300, 3, 27, 16, 16, False, {"hole": 128}),
+    "tap13_beside_centre": (700, 4, 27, 32, 16, True, {"tap13": True}),
+    "split_dec_l5_concat": (4096, 8, 27, 192, 96, True, {}),
+    "split_dec_l5_heavy": (1024, 18, 27, 192, 96, False, {}),
+    "ci8_under_one_k_step": (650, 5, 27, 8, 16, True, {}),
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(BANDMM))
 def test_bandmm_matches_plain_version(dev, case, dtype):
-    v, h, k, ci, co, with_xm = BANDMM[case]
+    """Within 1e-4 * max|plain|, duplicate taps included, and the same bits
+    from two calls (the band groups' partials are summed in a fixed
+    order)."""
+    v, h, k, ci, co, with_xm, opts = BANDMM[case]
     r = np.random.RandomState(v + h)
 
     def t(a, dt=dtype):
@@ -74,14 +93,18 @@ def test_bandmm_matches_plain_version(dev, case, dtype):
 
     xm = t(r.randn(v, ci).astype(np.float32)) if with_xm else None
     x_src = t(r.randn(h, v, ci).astype(np.float32)) if h else None
-    tap = t(_taps(r, h, v, k), torch.int32) if h else None
+    tap = t(_taps(r, h, v, k, **opts), torch.int32) if h else None
     w = t((r.randn(k, ci, co) * 0.1).astype(np.float32))
+    if case.startswith("split") or case == "heavy_h20_split":
+        assert bandmm.apply_plan(k, v, h, ci, co).splits > 1
     before = bandmm.KERNEL.launches
     out = bandmm.slot_conv_apply(xm, x_src, tap, w)
     assert bandmm.KERNEL.launches == before + 1
+    again = bandmm.slot_conv_apply(xm, x_src, tap, w)
     ref = bandmm.slot_conv_apply_ref(xm, x_src, tap, w)
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and out.shape == (v, co)
+    assert torch.equal(out, again)
     if v:
         err = float((out - ref).abs().max())
         assert err <= 1e-4 * float(ref.abs().max()), err
@@ -149,21 +172,30 @@ def test_maxpool_refuses_what_it_cannot_take(dev):
 
 
 BANDMM_DW = {
-    # name: (V, H, K, Ci, Co, with_xm)
-    "ragged_v_tier1_centre": (1000, 4, 27, 16, 16, True),
-    "ci3_input_conv": (777, 3, 27, 3, 16, True),
-    "ci192_decoder_concat": (300, 8, 27, 192, 96, True),
-    "heavy_tier": (129, 20, 27, 24, 40, False),
-    "strided_k8": (513, 1, 8, 48, 112, False),
-    "centre_only": (130, 0, 27, 8, 24, True),
-    "empty": (0, 3, 27, 16, 16, True),
+    # name: (V, H, K, Ci, Co, with_xm, tap options)
+    "ragged_v_tier1_centre": (1000, 4, 27, 16, 16, True, {}),
+    "ci3_input_conv": (777, 3, 27, 3, 16, True, {}),
+    "ci192_decoder_concat": (300, 8, 27, 192, 96, True, {}),
+    "heavy_tier": (129, 20, 27, 24, 40, False, {}),
+    "strided_k8": (513, 1, 8, 48, 112, False, {}),
+    "centre_only": (130, 0, 27, 8, 24, True, {}),
+    "empty": (0, 3, 27, 16, 16, True, {}),
+    # the tensor-core kernel's tile and chunk edges
+    "h26": (300, 26, 27, 16, 16, False, {}),
+    "tile_of_misses": (300, 3, 27, 16, 16, False, {"hole": 160}),
+    "tap13_beside_centre": (700, 4, 27, 32, 16, True, {"tap13": True}),
+    "two_column_blocks_co200": (1000, 4, 27, 16, 200, True, {}),
+    "ci8_nine_bands": (650, 5, 27, 8, 16, True, {}),
+    "chunks_enc_l0_tier1": (65536, 3, 27, 16, 16, True, {}),
+    "chunks_dec_l5_concat": (4096, 8, 27, 192, 96, True, {}),
+    "up_conv_l5_to_l4": (8192, 1, 8, 96, 80, False, {}),
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(BANDMM_DW))
 def test_bandmm_dw_matches_plain_version_and_repeats(dev, case, dtype):
-    v, h, k, ci, co, with_xm = BANDMM_DW[case]
+    v, h, k, ci, co, with_xm, opts = BANDMM_DW[case]
     r = np.random.RandomState(v + h + ci)
 
     def t(a, dt=dtype):
@@ -171,7 +203,7 @@ def test_bandmm_dw_matches_plain_version_and_repeats(dev, case, dtype):
 
     xm = t(r.randn(v, ci).astype(np.float32)) if with_xm else None
     x_src = t(r.randn(h, v, ci).astype(np.float32)) if h else None
-    tap = t(_taps(r, h, v, k), torch.int32) if h else None
+    tap = t(_taps(r, h, v, k, **opts), torch.int32) if h else None
     g = t(r.randn(v, co).astype(np.float32))
     before = bandmm_dw.KERNEL.launches
     out = bandmm_dw.slot_conv_dw(xm, x_src, tap, g, k_taps=k)
