@@ -18,7 +18,13 @@ against CPU, in fp32.  Phase 10 runs configs/config.yaml as shipped (batch
 16 per domain, bf16, OneCycle) through the port's CLI,
 `mm2d3d_tpu_torch.run.main`, over a synthetic nuScenes tree written to a
 temporary directory: 3 train steps, validation, test, then `run=test` with
-resume.  Prints, in its last lines, the card (nvidia-smi name and power
+resume.  Phase 11 does the same for configs/vkitti_skitti.yaml and
+configs/a2d2.yaml (64-beam scans, the dense slot profile, batch 16 per
+domain at 10,240 points, 480x302 crops, SemanticKITTI evaluated on whole
+1241x376 frames at batch 8) over synthetic SemanticKITTI, VirtualKITTI and
+A2D2 trees, holds K1-K4's launches to the hierarchies' prediction, and
+checks the dense profile's tables and fp32 forward card against CPU.
+Prints, in its last lines, the card (nvidia-smi name and power
 limit), one JSON line of kernel results, and one JSON line
 {"ok": true, "device": {...}}.  Any failed phase raises, and
 the script exits non-zero without the final line; it also refuses to run
@@ -178,7 +184,14 @@ def check_k4(res: Results, dev) -> None:
     from mm2d3d_tpu_torch.ops.kernels.maxpool import maxpool3x3s2, maxpool3x3s2_ref
 
     g = torch.Generator(device=dev).manual_seed(4)
-    for shape in ((BATCH, 240, 400, 64), (3, 33, 47, 64), (2, 17, 10, 64)):
+    shapes = {f"({BATCH}, 240, 400, 64)": (BATCH, 240, 400, 64),
+              "(3, 33, 47, 64)": (3, 33, 47, 64), "(2, 17, 10, 64)": (2, 17, 10, 64),
+              # the KITTI configs' stem outputs: 480x302 train crops (padded to
+              # 480x304) at batch 16, SemanticKITTI's 1241x376 eval frames
+              # (padded to 1248x384) at batch 8
+              "KITTI train stem (16, 152, 240, 64)": (16, 152, 240, 64),
+              "SemanticKITTI eval stem (8, 192, 624, 64)": (8, 192, 624, 64)}
+    for name, shape in shapes.items():
         for dt in (torch.float32, torch.bfloat16):
             x = torch.relu(torch.randn(shape, generator=g, device=dev)).to(dt)
             out, ref = maxpool3x3s2(x), maxpool3x3s2_ref(x)
@@ -188,7 +201,7 @@ def check_k4(res: Results, dev) -> None:
             plain = cuda_ms(lambda: maxpool3x3s2_ref(x))
             # one call of the same function (its output NCHW, channels_last)
             library = cuda_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1))
-            res.add("maxpool", f"{tuple(shape)} {str(dt)[6:]}", 0.0, 0.0, ms, plain,
+            res.add("maxpool", f"{name} {str(dt)[6:]}", 0.0, 0.0, ms, plain,
                     bound(nbytes(x, out)), library)
 
 
@@ -214,15 +227,17 @@ def check_k1(res: Results, dev) -> None:
     """K1, bf16 and fp32, for every call form the slice makes at level 0
     (the input conv's adjoint, Ci = 16 -> Co = 3, included), at level 5 for
     the widest ones (the deepest decoder's concat, Ci = 2 x 96, in each of
-    its tiers; the strided conv down to L6, the up conv to L4), and at the
-    tensor-core kernel's edges (ragged V, two column blocks, H = 20 and 26,
+    its tiers; the strided conv down to L6, the up conv to L4), at the KITTI
+    configs' level-0 tiers (the dense slot profile, batch 16 x 10,240), and
+    at the tensor-core kernel's edges (ragged V, two column blocks, H = 20 and 26,
     a tile of misses, duplicate taps and tap 13 beside the centre, split
     shapes).  Each form runs twice and must give the same bits; each case
     names its route."""
     from mm2d3d_tpu_torch.ops.kernels.bandmm import slot_conv_apply, slot_conv_apply_ref
     from mm2d3d_tpu_torch.tools.kernel_cases import edge_forms, k1_forms
 
-    forms = k1_forms(dev) + [(name, args[:4]) for name, args, _ in edge_forms(dev)]
+    forms = (k1_forms(dev) + k1_forms(dev, kitti=True)
+             + [(name, args[:4]) for name, args, _ in edge_forms(dev)])
     for dt in (torch.bfloat16, torch.float32):
         for name, (xm, xs, tap, w) in forms:
             args = (None if xm is None else xm.to(dt).contiguous(),
@@ -245,15 +260,15 @@ def check_k2(res: Results, dev) -> None:
     """K2, bf16 and fp32, for every call form the train step makes: at level
     0 the input conv, the encoder's three tiers and the decoder concat; the
     strided conv L0 -> L1; at level 5 the decoder concat in each tier; the
-    strided conv L5 -> L6 and the up conv L5 -> L4; and the tensor-core
-    kernel's edges.  The mid and heavy tiers take the gradient at their
+    strided conv L5 -> L6 and the up conv L5 -> L4; the KITTI configs'
+    level-0 tiers; and the tensor-core kernel's edges.  The mid and heavy tiers take the gradient at their
     compacted rows, as the adjoint does.  Each form runs twice and must give
     the same bits; each case names its route."""
     from mm2d3d_tpu_torch.ops.kernels.bandmm_dw import slot_conv_dw, slot_conv_dw_ref
     from mm2d3d_tpu_torch.tools.kernel_cases import edge_forms, k2_forms
 
-    forms = k2_forms(dev) + [(name, (xm, xs, tap, g), k)
-                             for name, (xm, xs, tap, _, g), k in edge_forms(dev)]
+    forms = k2_forms(dev) + k2_forms(dev, kitti=True) + [
+        (name, (xm, xs, tap, g), k) for name, (xm, xs, tap, _, g), k in edge_forms(dev)]
     for dt in (torch.bfloat16, torch.float32):
         for name, (xm, xs, tap, g), k in forms:
             args = (None if xm is None else xm.to(dt).contiguous(),
@@ -469,13 +484,14 @@ def run_slice(dev):
 # phase 5: card vs CPU, fp32, batch 2
 # --------------------------------------------------------------------------
 
-def compare_topology(batch, dev, slot_caps="default") -> int:
+def compare_topology(batch, dev, slot_caps="default", slot_profile="default") -> int:
     """Build the topology of a CPU batch on the card and on the CPU; every
     table must be identical.  Returns the number of tables."""
     from mm2d3d_tpu_torch.train.batch import build_topology
 
-    (g_gpu, h_gpu) = build_topology(batch.to(dev), 4096, 7, slot_caps=slot_caps)
-    (g_cpu, h_cpu) = build_topology(batch, 4096, 7, slot_caps=slot_caps)
+    kw = dict(slot_caps=slot_caps, slot_profile=slot_profile)
+    (g_gpu, h_gpu) = build_topology(batch.to(dev), 4096, 7, **kw)
+    (g_cpu, h_cpu) = build_topology(batch, 4096, 7, **kw)
     n_tables = 0
     for a, b in [(g_gpu, g_cpu)] + list(zip(h_gpu.levels, h_cpu.levels)) + \
             list(zip(h_gpu.transitions, h_cpu.transitions)):
@@ -1126,6 +1142,367 @@ def run_cli(dev):
     return launches, ms, peak, seconds
 
 
+# --------------------------------------------------------------------------
+# phase 11: the KITTI-family configs through the port's CLI, at full width
+# --------------------------------------------------------------------------
+
+KITTI_CONFIGS = {  # config: (source tree, class count)
+    "vkitti_skitti.yaml": ("virtual_kitti", 6),
+    "a2d2.yaml": ("a2d2", 10),
+}
+# scans: 3 train steps at batch 16 per domain; 2 val and 2 test batches of 8
+SKITTI_SPLITS = {"train": 48, "val": 16, "test": 16}
+SOURCE_SCANS = 48
+KITTI_FRAMES = 8  # distinct camera frames per tree, shared by the scans
+SKITTI_HW, VKITTI_HW, A2D2_HW = (376, 1241), (375, 1242), (1208, 1920)
+# camera (fx, fy, cx, cy) of each tree: KITTI's P2, vKITTI's fixed matrix,
+# A2D2's front camera (the datasets' own constants for the last two)
+SKITTI_CAM = (718.856, 718.856, 607.1928, 185.2157)
+VKITTI_CAM = (725.0, 725.0, 620.5, 187.0)
+A2D2_CAM = (1687.3369140625, 1783.428466796875, 965.43414055823814, 684.4193604186803)
+
+
+def beam_scan(rng, cam, hw, n_range, height=1.73, max_r=80.0):
+    """A 64-beam front-camera scan (camera frame: x right, y down, z
+    forward): the HDL-64E's 64 rings from -0.43 to 0.035 rad, 1024 azimuths
+    over the camera's view, a ground plane `height` below the sensor and
+    eight walls at 4-60 m; rays with no return within `max_r`, and returns
+    outside the `hw` frame, give no point; of the rest, `n_range` (lo, hi)
+    are kept -> (pts_cam float32 (N, 3), points_img (row, col) float64)."""
+    import numpy as np
+
+    fx, fy, cx, cy = cam
+    half = math.atan(max(cx, hw[1] - cx) / fx)
+    elev, az = np.meshgrid(np.linspace(-0.43, 0.035, 64), np.linspace(-half, half, 1024),
+                           indexing="ij")
+    elev, az = elev.ravel(), az.ravel()
+    with np.errstate(divide="ignore"):
+        r = np.where(elev < -1e-3, height / np.tan(-elev), np.inf)
+    for _ in range(8):
+        hit = np.abs(az - (rng.rand() - 0.5) * 2 * half) < rng.rand() * 0.12 + 0.03
+        r = np.where(hit, np.minimum(r, rng.rand() * 56 + 4), r)
+    r = r + rng.randn(r.size) * 0.02
+    pts = np.stack([r * np.cos(elev) * np.sin(az), -r * np.sin(elev),
+                    r * np.cos(elev) * np.cos(az)], 1)
+    with np.errstate(invalid="ignore"):
+        col = fx * pts[:, 0] / pts[:, 2] + cx
+        row = fy * pts[:, 1] / pts[:, 2] + cy
+        ok = ((r >= 2.0) & (r <= max_r) & (row >= 0) & (row < hw[0] - 1)
+              & (col >= 0) & (col < hw[1] - 1))
+    keep = np.flatnonzero(ok)
+    n = rng.randint(*n_range)
+    if keep.size < n:
+        raise AssertionError(f"a synthetic scan holds {keep.size} points in view, "
+                             f"fewer than {n}")
+    keep = np.sort(rng.choice(keep, size=n, replace=False))
+    return pts[keep].astype(np.float32), np.stack([row[keep], col[keep]], 1)
+
+
+def write_png(path: str, hw, rng) -> None:
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    Image.fromarray(rng.randint(0, 256, (*hw, 3), dtype=np.uint8)).save(
+        path, compress_level=1)
+
+
+def write_kitti_trees(root: str, seed: int = 0) -> dict:
+    """The preprocessed trees the KITTI-family datasets read, under `root`:
+    SemanticKITTI (`preprocess/{train,val,test}.pkl`, 1241x376 frames; raw
+    label ids), VirtualKITTI (`preprocess/train.pkl` of world-frame points
+    that project into its 1242x375 frames, every weather variant) and A2D2
+    (`preprocess/train.pkl`, 1920x1208 frames) -> {tree: its root}."""
+    import pickle
+
+    import numpy as np
+
+    from mm2d3d_tpu_torch.data.semantic_kitti import SemanticKITTI
+    from mm2d3d_tpu_torch.data.virtual_kitti import WEATHERS
+
+    rng = np.random.RandomState(seed)
+    roots = {name: os.path.join(root, name)
+             for name in ("semantic_kitti", "virtual_kitti", "a2d2")}
+    for r in roots.values():
+        os.makedirs(os.path.join(r, "preprocess"))
+
+    def lidar(pts_cam):  # x forward, y left, z up
+        return np.stack([pts_cam[:, 2], -pts_cam[:, 0], -pts_cam[:, 1]], 1)
+
+    fx, fy, cx, cy = SKITTI_CAM
+    ids = np.array(sorted(SemanticKITTI.id_to_class_name))
+    frames = [f"sequences/08/image_2/{i:06d}.png" for i in range(KITTI_FRAMES)]
+    for f in frames:
+        write_png(os.path.join(roots["semantic_kitti"], f), SKITTI_HW, rng)
+    k = 0
+    for split, n in SKITTI_SPLITS.items():
+        recs = []
+        for _ in range(n):
+            # 12,000-16,000 in view: the eval budget of 16,384 holds them
+            pts_cam, points_img = beam_scan(rng, SKITTI_CAM, SKITTI_HW, (12000, 16001))
+            recs.append({
+                "points": lidar(pts_cam), "pts_cam_coord": pts_cam,
+                "seg_labels": ids[rng.randint(0, ids.size, len(pts_cam))].astype(np.int32),
+                "points_img": points_img, "camera_path": frames[k % KITTI_FRAMES],
+                "lidar_path": f"sequences/08/velodyne/{k:06d}.bin",
+                "intrinsics": np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]]),
+            })
+            k += 1
+        with open(os.path.join(roots["semantic_kitti"], "preprocess", split + ".pkl"),
+                  "wb") as f:
+            pickle.dump(recs, f)
+
+    for w in WEATHERS:
+        for i in range(KITTI_FRAMES):
+            write_png(os.path.join(roots["virtual_kitti"], "vkitti_1.3.1_rgb", "0001", w,
+                                   f"{i:05d}.png"), VKITTI_HW, rng)
+    recs = []
+    for i in range(SOURCE_SCANS):
+        # more than the 10,000 points that `downsample: [10000]` draws
+        pts_cam, _ = beam_scan(rng, VKITTI_CAM, VKITTI_HW, (10500, 14001))
+        labels = rng.randint(0, 13, len(pts_cam))
+        labels[rng.rand(len(pts_cam)) < 0.05] = 99  # the raw "Don't care" id
+        recs.append({"points": lidar(pts_cam), "seg_labels": labels.astype(np.uint8),
+                     "lidar_path": f"vkitti_npy/0001/{i:05d}.npy", "scene_id": "0001",
+                     "frame_id": f"{i % KITTI_FRAMES:05d}"})
+    with open(os.path.join(roots["virtual_kitti"], "preprocess", "train.pkl"), "wb") as f:
+        pickle.dump(recs, f)
+
+    for i in range(KITTI_FRAMES):
+        write_png(os.path.join(roots["a2d2"], "camera", f"{i:06d}.png"), A2D2_HW, rng)
+    recs = []
+    for i in range(SOURCE_SCANS):
+        # 4,000-7,500 in view: the SemanticKITTI train crops' density
+        pts_cam, points_img = beam_scan(rng, A2D2_CAM, A2D2_HW, (4000, 7501))
+        recs.append({"points": lidar(pts_cam), "pts_cam_coord": pts_cam,
+                     "seg_labels": rng.randint(0, 55, len(pts_cam)).astype(np.uint8),
+                     "points_img": points_img,
+                     "camera_path": f"camera/{i % KITTI_FRAMES:06d}.png"})
+    with open(os.path.join(roots["a2d2"], "preprocess", "train.pkl"), "wb") as f:
+        pickle.dump(recs, f)
+    return roots
+
+
+def kitti_overrides(roots: dict, source: str, out: str) -> list:
+    """Paths, and nothing cut but the number of steps and batches."""
+    sk = roots["semantic_kitti"]
+    src = roots[source]
+    paths = [f"dataset.target.preprocess_dir={sk}/preprocess",
+             f"dataset.target.semantic_kitti_dir={sk}"]
+    if source == "virtual_kitti":
+        paths += [f"dataset.source.preprocess_dir={src}/preprocess",
+                  f"dataset.source.virtual_kitti_dir={src}"]
+    else:
+        paths += [f"dataset.source.preprocess_dir={src}"]
+    return paths + [f"train.out_dir={out}", "run.max_epochs=1",
+                    "run.limit_train_batches=3", "run.limit_val_batches=2"]
+
+
+def check_hierarchy(hier, what: str) -> None:
+    """Both overflow monitors of one topology: no level at capacity, no hit
+    dropped by a slot table."""
+    for l, lev in enumerate(hier.levels):
+        if int(lev.num_voxels) >= lev.capacity:
+            raise AssertionError(f"{what}: level {l} at capacity {lev.capacity}")
+        if lev.slot_overflow is not None and int(lev.slot_overflow) != 0:
+            raise AssertionError(f"{what}: level {l} dropped {int(lev.slot_overflow)} hits")
+
+
+def run_kitti_config(dev, config: str, roots: dict, root: str):
+    """One KITTI-family config as shipped through `mm2d3d_tpu_torch.run.main`:
+    fit (3 train steps, validation and test on 2 batches each), then
+    `run=test` with resume.  Every topology the task builds is kept, so the
+    launches of K1-K4 are held against the hierarchies' prediction and both
+    overflow monitors are read on every train step and eval batch."""
+    from mm2d3d_tpu_torch import run as cli
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.tools.train_repro import snapshot
+    from mm2d3d_tpu_torch.utils.config import load_config
+    from mm2d3d_tpu_torch.train.step import MM2D3DTask
+
+    source, n_classes = KITTI_CONFIGS[config]
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", config)
+    out = os.path.join(root, "run_" + os.path.splitext(config)[0])
+    overrides = kitti_overrides(roots, source, out)
+    classes = load_config(path, overrides)["train"]["params"]["class_names"]
+
+    ends, builds = [], []  # train-step ends; (train?, hierarchy) per topology
+    step, build = MM2D3DTask.train_step, MM2D3DTask.build_topology
+
+    def timed_step(self, *a, **kw):
+        logs = step(self, *a, **kw)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return logs
+
+    def kept_build(self, batch):
+        topo = build(self, batch)
+        builds.append((not torch.is_inference_mode_enabled(), topo[1]))
+        return topo
+
+    def expected(kept):
+        exp = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0,
+               "head2d": 0, "tapsum": 0}
+        for train, hier in kept:
+            one = (expected_train_launches([hier]) if train else expected_launches(hier))
+            for name, n in one.items():
+                exp[name] += n
+        return exp
+
+    MM2D3DTask.train_step, MM2D3DTask.build_topology = timed_step, kept_build
+    try:
+        kernels.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t_fit = time.perf_counter()
+        fit, _ = cli.main(["--config", path, *overrides])
+        fit_s = time.perf_counter() - t_fit
+        launches = kernels.counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        fit_builds = builds[:]
+        builds.clear()
+        kernels.reset_counts()
+        tester, test_results = cli.main(["--config", path, *overrides, "run=test",
+                                         "run.resume=true"])
+        test_launches = kernels.counts()
+    finally:
+        MM2D3DTask.train_step, MM2D3DTask.build_topology = step, build
+    test_builds = builds
+
+    if fit.task.slot_profile != "dense":
+        raise AssertionError(f"{config}: slot profile {fit.task.slot_profile}")
+    n_train = sum(t for t, _ in fit_builds)
+    if len(ends) != 3 or fit.global_step != 3 or n_train != 6:
+        raise AssertionError(f"{config}: {len(ends)} train steps, global_step "
+                             f"{fit.global_step}, {n_train} train topologies")
+    if len(fit_builds) - n_train != 6 or len(test_builds) != 2 or any(
+            t for t, _ in test_builds):
+        raise AssertionError(f"{config}: {len(fit_builds) - n_train} eval batches in "
+                             f"the fit (2 val, 2 + 2 test), {len(test_builds)} in the "
+                             "resumed test")
+    for i, (train, hier) in enumerate(fit_builds + test_builds):
+        check_hierarchy(hier, f"{config} {'train' if train else 'eval'} topology {i}")
+    check_counts(launches, expected(fit_builds), f"{config} fit")
+    check_counts(test_launches, expected(test_builds), f"{config} resumed test")
+
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f]
+    train = [ln for ln in lines if "train/loss_total" in ln]
+    evals = [ln for ln in lines if "val/target/iou" in ln]
+    if len(train) != 3 or len(evals) != 1:
+        raise AssertionError(f"{config}: {len(train)} train and {len(evals)} eval "
+                             "log lines")
+    for ln in train:
+        bad = {k: v for k, v in ln.items() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"{config} step {ln['step']}: non-finite {bad}")
+        for name in ("train/nbr_slot_overflow", "train/voxel_overflow_levels"):
+            if ln[name] != 0:
+                raise AssertionError(f"{config} step {ln['step']}: {name} = {ln[name]}")
+    for stage in ("val/target", "test/target"):
+        if evals[0][f"{stage}/nbr_slot_overflow"] != 0:
+            raise AssertionError(f"{config}: {stage} dropped slot hits")
+        if evals[0][f"{stage}/points_dropped"] != 0:
+            raise AssertionError(f"{config}: {stage} cut points at the eval budget")
+        for head in ("", "_3d", "_avg"):
+            key = f"{stage}/iou{head}"
+            if not 0 <= evals[0].get(key, -1) <= 1:
+                raise AssertionError(f"{config} {key}: {evals[0].get(key)}")
+    if fit.class_names != classes or len(classes) != n_classes or \
+            tester.class_names != classes:
+        raise AssertionError(f"{config}: class names {fit.class_names}, config "
+                             f"{classes}")
+    ckpts = os.path.join(out, "ckpts")
+    for name in ("last", "best_2d", "best_3d"):
+        for ext in (".pt", ".meta.json"):
+            if not os.path.exists(os.path.join(ckpts, name + ext)):
+                raise AssertionError(f"{config}: no checkpoint {name}{ext}")
+    if tester.global_step != 3 or tester.start_epoch != 1:
+        raise AssertionError(f"{config}: resumed at step {tester.global_step}, "
+                             f"epoch {tester.start_epoch}")
+    saved = torch.load(os.path.join(ckpts, "last.pt"), map_location=dev,
+                       weights_only=True)
+    resumed = snapshot(tester.task, tester.generator)
+    n = assert_same_state(saved, resumed, f"{config} resumed vs saved")
+    assert_same_state(snapshot(fit.task, fit.generator), resumed,
+                      f"{config} resumed vs fitted")
+    for head in ("", "_3d", "_avg"):
+        key = f"test/target/iou{head}"
+        if not 0 <= test_results.get(key, -1) <= 1:
+            raise AssertionError(f"{config} {key}: {test_results.get(key)}")
+
+    ms = statistics.median([b - a for a, b in zip(ends, ends[1:])]) * 1e3
+    log(f"{config}: losses " + ", ".join(f"{ln['train/loss_total']:.4f}" for ln in train)
+        + f"; {n_classes} classes {classes}; val IoU 2D/3D/avg " + "/".join(
+            f"{evals[0][f'val/target/iou{h}']:.4f}" for h in ("", "_3d", "_avg"))
+        + f"; both monitors 0 on {n_train} train and {len(fit_builds) - n_train + 2} "
+        f"eval topologies; checkpoints last, best_2d, best_3d; resumed: all {n} "
+        f"tensors of `last` bit-equal; fit launches {launches} (as predicted), "
+        f"resumed test {test_launches}")
+    log(f"{config} train step, bf16, batch 16 per domain: {ms:.2f} ms/step (median "
+        f"of steps 2-3, trainer loop wall), {32 * 1e3 / ms:.1f} scans/s; from main() "
+        f"to the end of step 1 {ends[0] - t_fit:.1f} s; fit + validation + test "
+        f"{fit_s:.1f} s; peak memory {peak:.2f} GiB")
+    return launches, ms, peak
+
+
+def check_kitti_topology_and_forward(dev) -> None:
+    """On 64-beam scans (`make_batch(variant="kitti")`): at the train step's
+    16 x 10,240 points the dense profile's tables identical on the card and
+    on the CPU, with no hit dropped, where the default profile drops hits;
+    the card's fp32 forward under the dense profile at batch 2 within
+    1e-3 * max|CPU| of the CPU's."""
+    from mm2d3d_tpu_torch.flagship import flagship_task
+    from mm2d3d_tpu_torch.tools.kernel_cases import KITTI_BATCH, kitti_batch
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    batch = kitti_batch(0, KITTI_BATCH, "cpu")
+    n_tables = compare_topology(batch, dev, slot_profile="dense")
+    dropped = {}
+    for profile in ("dense", "default"):
+        _, hier = build_topology(batch.to(dev), 4096, 7, slot_profile=profile)
+        dropped[profile] = sum(int(l.slot_overflow) for l in hier.levels
+                               if l.slot_overflow is not None)
+    if dropped["dense"] != 0 or dropped["default"] <= 0:
+        raise AssertionError(f"hits dropped at batch {KITTI_BATCH}: {dropped}")
+    log(f"64-beam batch {KITTI_BATCH} x 10240: {n_tables} dense-profile tables "
+        f"identical card vs CPU; hits dropped: dense 0, default {dropped['default']}")
+
+    outs = []  # card, CPU
+    batch = kitti_batch(1, 2, "cpu")
+    for d in (dev, torch.device("cpu")):
+        task = flagship_task(compute_dtype=torch.float32, device=d, slot_profile="dense")
+        task.init_params(torch.Generator().manual_seed(3))
+        outs.append(task.forward(batch.to(d)))
+    for name in ("seg_logit_2d", "seg_logit_3d", "ensemble"):
+        a, b = outs[0][name].cpu(), outs[1][name]
+        err = float((a - b).abs().max())
+        tol = LOGIT_REL_TOL * float(b.abs().max())
+        log(f"  dense profile, fp32, batch 2: {name} max|card - CPU| = {err:.3e} "
+            f"(tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"{name}: card vs CPU {err} > {tol}")
+
+
+def run_kitti(dev):
+    """Phase 11 -> ({config: launches}, {config: ms per step}, {config: peak
+    GiB}, seconds)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    check_kitti_topology_and_forward(dev)
+    launches, ms, peak = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t1 = time.perf_counter()
+        roots = write_kitti_trees(root)
+        log(f"synthetic trees: SemanticKITTI {SKITTI_SPLITS}, VirtualKITTI and A2D2 "
+            f"{SOURCE_SCANS} scans each, {KITTI_FRAMES} frames per tree, "
+            f"{time.perf_counter() - t1:.1f} s")
+        for config in KITTI_CONFIGS:
+            launches[config], ms[config], peak[config] = run_kitti_config(
+                dev, config, roots, root)
+    return launches, ms, peak, time.perf_counter() - t0
+
+
 def descendants() -> list:
     """Live processes below this one (children, their children, ...), read
     from /proc; zombies are left out, they end with their parent."""
@@ -1228,6 +1605,16 @@ def run_phases(dev) -> int:
     log(f"phase 10: {len(running)} server processes of the loader pools stopped; "
         "no process of this script left running")
 
+    log("phase 11: configs/vkitti_skitti.yaml and configs/a2d2.yaml through "
+        "mm2d3d_tpu_torch.run, full width")
+    kitti_launches, kitti_ms, kitti_peak, kitti_s = run_kitti(dev)
+    running = descendants()
+    left = stop_processes()
+    if left:
+        raise AssertionError(f"processes still running after phase 11: {left}")
+    log(f"phase 11: {len(running)} server processes of the loader pools stopped; "
+        f"no process of this script left running; phase 11 {kitti_s:.1f} s")
+
     from mm2d3d_tpu_torch.ops import kernels
 
     main_case = {"propagate": "L0 ", "maxpool": f"({BATCH}, 240, 400, 64) float32",
@@ -1238,7 +1625,8 @@ def run_phases(dev) -> int:
     # each kernel's launches on the path it runs on: the eval forward of
     # phase 4 (K1, K3, K4), the train step of phase 6 (K2), the opt-in eval
     # forward of phase 8 (K5, K6); "cli_launches": phase 10's fit through
-    # the CLI (K1-K4)
+    # the CLI (K1-K4); "kitti_launches": phase 11's fit of each KITTI config;
+    # "kitti_case": the kernel at the KITTI configs' shapes (phase 3)
     path_launches = {"bandmm_dw": train_launches["bandmm_dw"],
                      "tapsum": optin_launches["tapsum"],
                      "head2d": optin_launches["head2d"]}
@@ -1255,6 +1643,11 @@ def run_phases(dev) -> int:
             "bound_ms": case[6], "bound_by": case[7], "library_ms": case[8],
             "slowest_vs_library": res.slowest_vs_library(name),
             "cli_launches": cli_launches[name],
+            "kitti_launches": {c: n[name] for c, n in kitti_launches.items()},
+            "kitti_case": next(({"case": c[1], "ms": c[4], "plain_ms": c[5],
+                                 "bound_ms": c[6], "bound_by": c[7]}
+                                for c in res.cases if c[0] == name and "KITTI" in c[1]),
+                               None),
         })
     log(f"slice: {slice_ms:.2f} ms/batch of {BATCH}, {BATCH * 1e3 / slice_ms:.1f} scans/s")
     log(f"train: {train_ms:.2f} ms/step of 2 x {BATCH}, "
@@ -1263,6 +1656,9 @@ def run_phases(dev) -> int:
         "ms/step")
     log(f"CLI: {cli_ms:.2f} ms/step of 2 x 16, {32 * 1e3 / cli_ms:.1f} scans/s, peak "
         f"{cli_peak:.2f} GiB, {cli_s:.1f} s")
+    for config, ms in kitti_ms.items():
+        log(f"CLI {config}: {ms:.2f} ms/step of 2 x 16, {32 * 1e3 / ms:.1f} scans/s, "
+            f"peak {kitti_peak[config]:.2f} GiB")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

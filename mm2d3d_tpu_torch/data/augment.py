@@ -5,10 +5,11 @@
   rot-z or rot-y, scale to voxel units, shift to the positive octant,
   optional random translation inside the receptive field; returns (coords,
   min_value, offset, rot_matrix) so the transform stays invertible.
-- the image-side ops of the nuScenes dataset: bilinear resize with
-  projected-point rescaling, sparse depth map and dense 2D label map,
-  horizontal flip of image / depth / indices / intrinsics, color jitter
-  (on the host, or its parameters for the device), normalization.
+- the image-side ops of the datasets: bilinear resize with projected-point
+  rescaling, sparse depth map and dense 2D label map, horizontal flip of
+  image / depth / indices / intrinsics, the KITTI-family bottom or random
+  crop, color jitter (on the host, or its parameters for the device),
+  normalization.
 
 The JAX package also has C++ versions of the image ops, which its tests
 hold bit-compatible with these numpy ones; they stay with that package.
@@ -153,6 +154,51 @@ def fliplr_sample(
         intrinsics = intrinsics.copy()
         intrinsics[0, 2] = w - intrinsics[0, 2]
     return image, depth, img_indices, seg_labels_2d, intrinsics
+
+
+def crop_with_retry(
+    image: np.ndarray,
+    points_img: np.ndarray,
+    rng: np.random.RandomState,
+    crop_size: Tuple[int, int],  # (W, H)
+    bottom_crop: bool,
+    rand_crop: np.ndarray,
+    min_points: int = 100,
+):
+    """Bottom or random crop, retried up to 10x until more than `min_points`
+    projected points survive (semantic_kitti.py:319-391); after 10 failed
+    tries the whole image.  Returns (image, points_img, keep_idx, (top,
+    left))."""
+    w, h = image.shape[1], image.shape[0]
+    for _ in range(10):
+        if bottom_crop:
+            left = int(rng.rand() * (w + 1 - crop_size[0]))
+            right = left + crop_size[0]
+            top, bottom = h - crop_size[1], h
+        else:
+            ch, cw = rand_crop[0::2] + rng.rand(2) * (rand_crop[1::2] - rand_crop[0::2])
+            top = int(rng.rand() * (1 - ch) * h)
+            left = int(rng.rand() * (1 - cw) * w)
+            bottom, right = int(top + ch * h), int(left + cw * w)
+        keep_idx = (
+            (points_img[:, 0] >= top)
+            & (points_img[:, 0] < bottom)
+            & (points_img[:, 1] >= left)
+            & (points_img[:, 1] < right)
+        )
+        if keep_idx.sum() > min_points:
+            cropped = image[top:bottom, left:right]
+            pts = points_img[keep_idx].copy()
+            pts[:, 0] -= top
+            pts[:, 1] -= left
+            if len(rand_crop) > 0 and crop_size:
+                # a random crop resizes back to crop_size; A2D2 passes no
+                # crop_size and resizes separately afterwards
+                in_size = (cropped.shape[1], cropped.shape[0])
+                pts = rescale_points_img(pts, in_size, tuple(crop_size))
+                cropped = bilinear_resize(cropped, (crop_size[1], crop_size[0]))
+            return cropped, pts, keep_idx, (top, left)
+    return image, points_img, np.ones(len(points_img), bool), (0, 0)
 
 
 def color_jitter(

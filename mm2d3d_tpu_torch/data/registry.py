@@ -3,8 +3,8 @@
 datasets (source-train, target-train, target-val, target-test) are wrapped
 into loaders; the train pair is consumed through `loader.max_size_cycle`.
 
-Only `nuscenes` is ported. The other scenarios' datasets (SemanticKITTI,
-VirtualKITTI, A2D2) are ROADMAP Queue 1 item 5.
+Scenarios: `nuscenes` (USA/Singapore, Day/Night), `a2d2_semantic_kitti`
+and `vkitti_semantic_kitti`.
 """
 
 from __future__ import annotations
@@ -12,10 +12,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
+from .a2d2 import A2D2
 from .loader import Loader
 from .nuscenes import NuScenesLidarSeg
-
-_NOT_PORTED = ("a2d2_semantic_kitti", "vkitti_semantic_kitti")
+from .semantic_kitti import SemanticKITTI
+from .virtual_kitti import VirtualKITTI
 
 
 @dataclass
@@ -44,15 +45,9 @@ def load_datamodule(
 ) -> DataModule:
     """The four datasets and loaders of a UDA scenario, as the JAX
     `load_datamodule` builds them: `augmentations` reach the train datasets
-    only, `specific` all four; `eval_n_points` is the val/test loaders'
-    point budget (default `n_points`); the val/test loaders pad their tail
-    batch."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"datamodule {name!r} is not ported to mm2d3d_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 5: the other scenarios' datasets)")
-    if name != "nuscenes":
-        raise ValueError(f"unknown datamodule {name!r}")
+    only, `specific` all four, less the keys each dataset class does not
+    take; `eval_n_points` is the val/test loaders' point budget (default
+    `n_points`); the val/test loaders pad their tail batch."""
     specific = specific or {}
     augmentations = augmentations or {}
     if augmentations.get("image_normalizer"):
@@ -68,24 +63,73 @@ def load_datamodule(
     # .prepare_device_batch); it has no normalizer, so one forces the host
     common.setdefault("device_image_ops", not common.get("image_normalizer"))
 
-    def make(cfg, key, train):
-        split = cfg.get(key)
+    def splits(cfg, key):
+        v = cfg.get(key)
+        return tuple(v) if v else None
+
+    def kwargs(train, drop=(), eval_drop=()):
         kw = {**common, **(augmentations if train else {})}
-        kw.pop("merge_classes_style", None)
-        return NuScenesLidarSeg(
-            split=tuple(split) if split else None,
+        for key in drop + (() if train else eval_drop):
+            kw.pop(key, None)
+        return kw
+
+    def skitti(cfg, key, train, style, drop):
+        """The SemanticKITTI target: crops in training, the full frame at
+        eval."""
+        return SemanticKITTI(
+            split=splits(cfg, key),
             preprocess_dir=cfg["preprocess_dir"],
-            nuscenes_dir=cfg.get("nuscenes_dir", ""),
-            pselab_paths=cfg.get("pselab_paths"),
-            image_cache_dir=cfg.get("image_cache_dir"),
+            semantic_kitti_dir=cfg.get("semantic_kitti_dir", ""),
+            pselab_paths=cfg.get("pselab_paths") if train else None,
             output_orig=not train,
-            **kw,
+            **{**kwargs(train, drop, ("crop_size", "bottom_crop")),
+               "merge_classes_style": style},
         )
 
-    src_train = make(cfg_source, "TRAIN", True)
-    trg_train = make(cfg_target, "TRAIN", True)
-    trg_val = make(cfg_target, "VAL", False)
-    trg_test = make(cfg_target, "TEST", False)
+    if name == "nuscenes":
+        def make_src(cfg, key, train):
+            return NuScenesLidarSeg(
+                split=splits(cfg, key),
+                preprocess_dir=cfg["preprocess_dir"],
+                nuscenes_dir=cfg.get("nuscenes_dir", ""),
+                pselab_paths=cfg.get("pselab_paths"),
+                image_cache_dir=cfg.get("image_cache_dir"),
+                output_orig=not train,
+                **kwargs(train, ("merge_classes_style",)),
+            )
+
+        make_trg = make_src
+    elif name == "a2d2_semantic_kitti":
+        style = specific.get("merge_classes_style", "A2D2")
+
+        def make_src(cfg, key, train):
+            return A2D2(
+                split=splits(cfg, key), preprocess_dir=cfg["preprocess_dir"],
+                **kwargs(train, ("merge_classes_style", "crop_size", "bottom_crop")),
+            )
+
+        def make_trg(cfg, key, train):
+            return skitti(cfg, key, train, style,
+                          ("merge_classes", "resize", "rand_crop"))
+    elif name == "vkitti_semantic_kitti":
+        def make_src(cfg, key, train):
+            return VirtualKITTI(
+                split=splits(cfg, key), preprocess_dir=cfg["preprocess_dir"],
+                virtual_kitti_dir=cfg.get("virtual_kitti_dir", ""),
+                output_orig=not train,
+                **kwargs(train, ("merge_classes_style",)),
+            )
+
+        def make_trg(cfg, key, train):
+            return skitti(cfg, key, train, "VirtualKITTI",
+                          ("merge_classes", "downsample", "random_weather"))
+    else:
+        raise ValueError(f"unknown datamodule {name!r}")
+
+    src_train = make_src(cfg_source, "TRAIN", True)
+    trg_train = make_trg(cfg_target, "TRAIN", True)
+    trg_val = make_trg(cfg_target, "VAL", False)
+    trg_test = make_trg(cfg_target, "TEST", False)
 
     test_bs = test_batch_size or batch_size
     eval_np = eval_n_points or n_points

@@ -51,21 +51,34 @@ def make_batch(
     num_classes: int = 6,
     full_scale: int = 4096,
     valid_fraction: float = 0.95,
+    variant: str = "nuscenes",
     wire: bool = False,
 ) -> PointBatch:
-    """LiDAR-like scene (ground plane + walls, 32 beam rings) projected to a
-    virtual front camera, random labels; `wire=True` gives the uint8 image
-    with the per-point features left to `prepare_device_batch`.
+    """LiDAR-like scene (ground plane + walls) projected to a virtual front
+    camera, random labels; `wire=True` gives the uint8 image with the
+    per-point features left to `prepare_device_batch`.
 
-    The JAX function's `variant="kitti"` and `separable=True` options serve
-    other scenarios and its learning test; they are not part of this port."""
+    `variant` selects the beam pattern: "nuscenes" (32 rings, the flagship
+    geometry) or "kitti" (64 rings over a narrower elevation span, the
+    HDL-64E-style pattern of the SemanticKITTI / A2D2 / VirtualKITTI
+    scenarios), whose denser rings the `dense` slot profile is sized for
+    (`train.batch.default_slot_caps`).
+
+    The JAX function's `separable=True` option serves its learning test;
+    it is not part of this port."""
     b, n = batch_size, n_points
     dtype = np.float32
 
     img = rng.rand(b, height, width, 3).astype(dtype)
 
-    n_rings = 32
-    elev = np.linspace(-0.42, 0.08, n_rings)
+    if variant == "kitti":
+        n_rings = 64
+        elev = np.linspace(-0.43, 0.035, n_rings)  # HDL-64E-like span
+    elif variant == "nuscenes":
+        n_rings = 32
+        elev = np.linspace(-0.42, 0.08, n_rings)
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
     per_ring = n // n_rings
     az = np.linspace(-0.45, 0.45, per_ring)
     elev_g, az_g = np.meshgrid(elev, az, indexing="ij")

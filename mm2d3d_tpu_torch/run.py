@@ -55,9 +55,7 @@ def build_task(cfg: Dict, num_classes: int, device="cuda"):
             (cfg["models"]["net2d"].get("frozen_batch_norm", False),
              "models.net2d.frozen_batch_norm", 3),
             (m3.get("residual_blocks", False),
-             "models.net3d.backbone_3d.residual_blocks", 3),
-            (cfg["train"].get("slot_profile", "default") != "default",
-             "train.slot_profile", 5)):
+             "models.net3d.backbone_3d.residual_blocks", 3)):
         if flag:
             raise NotImplementedError(
                 f"{where} is not ported to mm2d3d_tpu_torch yet "
@@ -90,6 +88,7 @@ def build_task(cfg: Dict, num_classes: int, device="cuda"):
         model2d=model2d,
         model3d=model3d,
         device=device,
+        slot_profile=cfg["train"].get("slot_profile", "default"),
     )
     # the models' plugin metadata for the run record
     task.model_info = {}

@@ -1,7 +1,8 @@
 """What `chip_smoke.py` and the K1/K2 tools (`tools/slotconv_ab.py`,
 `tools/slotconv_tiles.py`) share: the flagship batch, the device timer, and
-K1's and K2's call forms at the flagship's shapes and at the tensor-core
-kernels' edges.
+K1's and K2's call forms at the flagship's shapes, at the KITTI-family
+configs' level-0 tiers (the dense slot profile, batch 16 x 10,240 points)
+and at the tensor-core kernels' edges.
 
 The imports of the package sit inside the functions and name it in full,
 so that `tools/slotconv_ab.py` can load this file beside another checkout's
@@ -18,6 +19,11 @@ import torch
 BATCH = 8
 FLAGSHIP_BATCH = dict(height=225, width=400, n_points=8192, num_classes=6,
                       full_scale=4096)
+# the KITTI-family configs' train step: 64-beam scans, batch 16 per domain,
+# 480x302 crops, the dense slot profile
+KITTI_BATCH = 16
+KITTI_SCAN = dict(height=302, width=480, n_points=10240, num_classes=6,
+                  full_scale=4096, variant="kitti")
 SLEEP_CYCLES = 100_000_000  # ~50-300 ms of SM clock: longer than the queued calls' dispatch
 
 
@@ -27,6 +33,15 @@ def flagship_batch(seed: int, batch_size: int, device):
 
     return make_batch(np.random.RandomState(seed), batch_size=batch_size,
                       **FLAGSHIP_BATCH).to(device)
+
+
+def kitti_batch(seed: int, batch_size: int, device):
+    """A synthetic batch of 64-beam scans at the KITTI configs' train
+    shapes, from `seed`."""
+    from mm2d3d_tpu_torch.data.synthetic import make_batch
+
+    return make_batch(np.random.RandomState(seed), batch_size=batch_size,
+                      **KITTI_SCAN).to(device)
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -51,19 +66,23 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(samples)
 
 
-def _hierarchy(dev):
+def _hierarchy(dev, kitti: bool = False):
     from mm2d3d_tpu_torch.train.batch import build_topology
 
+    if kitti:
+        return build_topology(kitti_batch(0, KITTI_BATCH, dev), 4096, 7,
+                              slot_profile="dense")[1]
     return build_topology(flagship_batch(0, BATCH, dev), 4096, 7)[1]
 
 
-def k1_forms(dev, seed: int = 1):
+def k1_forms(dev, seed: int = 1, kitti: bool = False):
     """(name, (xm, x_src, tap, w)) in fp32 for the K1 calls of the default
     path at level 0 (the input conv and its adjoint, Ci = 16 -> Co = 3; the
     encoder's three tiers; the decoder concat; the strided conv to L1) and
     at level 5 (the decoder concat in each tier, the strided conv to L6,
-    the up conv to L4), from a batch-8 flagship topology."""
-    hier = _hierarchy(dev)
+    the up conv to L4), from a batch-8 flagship topology; with `kitti`,
+    the encoder's three level-0 tiers of a batch-16 KITTI topology."""
+    hier = _hierarchy(dev, kitti)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*shape):
@@ -92,6 +111,8 @@ def k1_forms(dev, seed: int = 1):
                 (None, rnd(1, off_id.shape[0], ci), off_id[None].contiguous(),
                  rnd(8, ci, co) * 0.1))
 
+    if kitti:
+        return subm(0, 16, 16, "KITTI enc L0", True)
     return (subm(0, 3, 16, "input conv Ci=3", False)
             + subm(0, 16, 3, "input conv adjoint 16->3", False)
             + subm(0, 16, 16, "enc L0", True)
@@ -101,11 +122,11 @@ def k1_forms(dev, seed: int = 1):
             + [strided(5, 96, 112), strided(4, 96, 80, up=True)])
 
 
-def k2_forms(dev, seed: int = 2):
+def k2_forms(dev, seed: int = 2, kitti: bool = False):
     """(name, (xm, x_src, tap, g), K) in fp32 for the K2 calls of the train
     step at the same places: the mid and heavy tiers take the gradient at
     their compacted rows, as the adjoint does."""
-    hier = _hierarchy(dev)
+    hier = _hierarchy(dev, kitti)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*shape):
@@ -139,6 +160,8 @@ def k2_forms(dev, seed: int = 2):
                 (None, rnd(1, off_id.shape[0], ci), off_id[None].contiguous(),
                  rnd(off_id.shape[0], co)), 8)
 
+    if kitti:
+        return subm(0, 16, 16, "KITTI enc L0", True)
     return (subm(0, 3, 16, "input conv Ci=3", False)
             + subm(0, 16, 16, "enc L0", True)
             + subm(0, 32, 16, "dec L0 (concat)", False)

@@ -1,6 +1,7 @@
 """K1 (`slot_conv_apply`) and K2 (`slot_conv_dw`) at the flagship's call
-shapes and at the tensor-core kernels' edges: the cases of `chip_smoke.py`
-phase 3, timed on one tree, or on two trees in turns on one card.
+shapes, at the KITTI configs' level-0 tiers and at the tensor-core kernels'
+edges: the cases of `chip_smoke.py` phase 3, timed on one tree, or on two
+trees in turns on one card.
 
     python mm2d3d_tpu_torch/tools/slotconv_ab.py              # this tree
     python mm2d3d_tpu_torch/tools/slotconv_ab.py --ab OTHER   # OTHER, this, this, OTHER
@@ -13,13 +14,15 @@ median of 3 samples; the same inputs from the same seeds in every tree).
 `--ab` prints each case's four readings and whether both of this tree's are
 under both of OTHER's.  The forms (`tools/kernel_cases.py`, this tree's
 in every run) use only the wrappers' interface, which is the same in both
-trees.  Needs a CUDA device.
+trees; a tree whose `build_topology` has no `slot_profile` (older than the
+KITTI configs) times no KITTI case.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -45,6 +48,7 @@ def time_tree() -> dict:
 
     from mm2d3d_tpu_torch.ops.kernels.bandmm import slot_conv_apply
     from mm2d3d_tpu_torch.ops.kernels.bandmm_dw import slot_conv_dw
+    from mm2d3d_tpu_torch.train.batch import build_topology
 
     kc = _kernel_cases()
     cuda_ms = kc.cuda_ms
@@ -55,12 +59,15 @@ def time_tree() -> dict:
         return tuple(None if t is None else t.to(bf).contiguous() for t in ts)
 
     cases = {}
-    for name, (xm, xs, tap, w) in kc.k1_forms(dev):
-        xm, xs, w = cast(xm, xs, w)
-        cases[f"K1 {name}"] = cuda_ms(lambda: slot_conv_apply(xm, xs, tap, w))
-    for name, (xm, xs, tap, g), k in kc.k2_forms(dev):
-        xm, xs, g = cast(xm, xs, g)
-        cases[f"K2 {name}"] = cuda_ms(lambda: slot_conv_dw(xm, xs, tap, g, k_taps=k))
+    kitti = (False, True) if "slot_profile" in inspect.signature(
+        build_topology).parameters else (False,)
+    for kt in kitti:
+        for name, (xm, xs, tap, w) in kc.k1_forms(dev, kitti=kt):
+            xm, xs, w = cast(xm, xs, w)
+            cases[f"K1 {name}"] = cuda_ms(lambda: slot_conv_apply(xm, xs, tap, w))
+        for name, (xm, xs, tap, g), k in kc.k2_forms(dev, kitti=kt):
+            xm, xs, g = cast(xm, xs, g)
+            cases[f"K2 {name}"] = cuda_ms(lambda: slot_conv_dw(xm, xs, tap, g, k_taps=k))
     for name, (xm, xs, tap, w, g), k in kc.edge_forms(dev):
         xm, xs, w, g = cast(xm, xs, w, g)
         cases[f"K1 {name}"] = cuda_ms(lambda: slot_conv_apply(xm, xs, tap, w))
@@ -98,7 +105,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())
-    names = list(runs[-1]["cases"])
+    names = list(dict.fromkeys(n for r in runs for n in r["cases"]))
     if args.ab is None:
         for n in names:
             print(f"{n:60s} {runs[0]['cases'][n]:.4f} ms")

@@ -94,16 +94,19 @@ def prepare_device_batch(batch: PointBatch) -> PointBatch:
 
 
 def default_capacities(num_points: int, num_levels: int,
-                       batch_size: Optional[int] = None) -> Tuple[int, ...]:
+                       batch_size: Optional[int] = None,
+                       profile: str = "default") -> Tuple[int, ...]:
     """Per-level voxel-row capacities: [P, 5P/8, 3P/8, P/4, ...] with a
-    per-scan floor at the coarse levels (the JAX package's default
-    profile; see its docstring for the measured occupancies)."""
+    per-scan floor at the coarse levels (the JAX package's schedule; see
+    its docstring for the measured occupancies).  The `dense` profile
+    (64-beam scans) widens levels 1 and 2 to 11P/16 and 7P/16."""
+    l1_num, l2_num = (11, 7) if profile == "dense" else (10, 6)
     caps = []
     for l in range(num_levels):
         if l == 1:
-            cap = (num_points * 10) >> 4
+            cap = (num_points * l1_num) >> 4
         elif l == 2:
-            cap = (num_points * 6) >> 4
+            cap = (num_points * l2_num) >> 4
         else:
             cap = num_points >> max(0, l - 1)
         if batch_size is not None and l >= 3:
@@ -112,27 +115,44 @@ def default_capacities(num_points: int, num_levels: int,
     return tuple(caps)
 
 
-# 3-tier plan per level: (h1, h2, h_max, vm_cap / V in 64ths, vh_cap / V in
-# 64ths), calibrated by the JAX package on flagship-size scans.
+# 3-tier plan per level and profile: (h1, h2, h_max, vm_cap / V in 64ths,
+# vh_cap / V in 64ths), calibrated by the JAX package: `default` on
+# flagship-size 32-beam scans, `dense` (>= 1.5x headroom) on 64-beam
+# KITTI-family scans, where the default tier caps drop hits
 _PLAN3 = {
-    0: (3, 6, 26, 28, 2),
-    1: (4, 8, 26, 20, 4),
-    2: (4, 8, 26, 22, 6),
-    3: (4, 8, 26, 24, 6),
-    4: (4, 8, 26, 24, 8),
+    "default": {
+        0: (3, 6, 26, 28, 2),
+        1: (4, 8, 26, 20, 4),
+        2: (4, 8, 26, 22, 6),
+        3: (4, 8, 26, 24, 6),
+        4: (4, 8, 26, 24, 8),
+    },
+    "dense": {
+        0: (3, 8, 26, 30, 6),
+        1: (4, 8, 26, 30, 12),
+        2: (4, 8, 26, 32, 8),
+        3: (4, 8, 26, 30, 8),
+        4: (4, 8, 26, 34, 10),
+    },
 }
 
 
-def default_slot_caps(num_levels: int, capacities: Tuple[int, ...]):
+def default_slot_caps(num_levels: int,
+                      capacities: Optional[Tuple[int, ...]] = None,
+                      profile: str = "default"):
     """Per-level slot specs: 3-tier (h1, h2, h_max, vm_cap, vh_cap) at levels
-    0-4, 2-tier (h_lo, h_max, vh_cap) below.  h_max = 26 is the structural
-    maximum, so only a tier's compaction cap can drop hits (monitored as
-    `slot_overflow`)."""
+    0-4, 2-tier (h_lo, h_max, vh_cap) below, for the `default` (32-beam) or
+    `dense` (64-beam) profile; capacities default to 65,536 rows per level,
+    as in JAX.  h_max = 26 is the structural maximum, so only a tier's
+    compaction cap can drop hits (monitored as `slot_overflow`)."""
+    if profile not in _PLAN3:
+        raise ValueError(f"unknown slot profile {profile!r}")
+    plan3 = _PLAN3[profile]
     specs = []
     for l in range(num_levels):
-        v = capacities[l]
-        if l in _PLAN3:
-            h1, h2, h_max, nm, nh = _PLAN3[l]
+        v = capacities[l] if capacities is not None else 1 << 16
+        if l in plan3:
+            h1, h2, h_max, nm, nh = plan3[l]
             specs.append((h1, h2, h_max, max(256, v * nm // 64),
                           max(256, v * nh // 64)))
         else:
@@ -142,21 +162,23 @@ def default_slot_caps(num_levels: int, capacities: Tuple[int, ...]):
 
 def build_topology(batch: PointBatch, full_scale: int, num_levels: int,
                    capacities: Optional[Tuple[int, ...]] = None,
-                   slot_caps="default") -> Tuple[VoxelGrid, Hierarchy]:
+                   slot_caps="default", slot_profile: str = "default",
+                   ) -> Tuple[VoxelGrid, Hierarchy]:
     """Voxelize the batch and build the sparse U-Net hierarchy, as the JAX
     `build_topology`: `capacities` default to `default_capacities`;
-    `slot_caps="default"` takes `default_slot_caps`, None builds no slot
-    tables (every submanifold conv on the dense 27-tap path, K6), and a
-    per-level sequence takes any form `ops.hierarchy.build_hierarchy`
-    takes."""
+    `slot_caps="default"` takes `default_slot_caps`, both of the
+    `slot_profile` (`default` or `dense`); None builds no slot tables
+    (every submanifold conv on the dense 27-tap path, K6), and a per-level
+    sequence takes any form `ops.hierarchy.build_hierarchy` takes."""
     coords, _, _, mask, bidx = flatten_points(batch)
     if capacities is None:
         capacities = default_capacities(coords.shape[0], num_levels,
-                                        batch_size=batch.batch_size)
+                                        batch_size=batch.batch_size,
+                                        profile=slot_profile)
     if isinstance(slot_caps, str):
         if slot_caps != "default":
             raise ValueError(f"unknown slot caps {slot_caps!r}")
-        slot_caps = default_slot_caps(num_levels, capacities)
+        slot_caps = default_slot_caps(num_levels, capacities, slot_profile)
     grid = voxelize(coords, bidx, mask, full_scale, capacity=capacities[0],
                     presorted=batch.coords_sorted)
     hier = build_hierarchy(grid, num_levels, capacities, slot_caps,

@@ -97,7 +97,10 @@ class MM2D3DTask:
     optimizers start afresh whenever weights are loaded (`init_params`,
     `load_flax`), as a new JAX `TrainState` does.  `model2d` / `model3d`
     replace the default networks, as in the JAX task (for example
-    `Net2DSeg(..., fused_head=True)`, the fused head through K5)."""
+    `Net2DSeg(..., fused_head=True)`, the fused head through K5).
+    `slot_profile` is the slot-cap plan of every topology the task builds:
+    "default" (32-beam nuScenes-style scans) or "dense" (64-beam
+    KITTI-family scans; `train.batch.default_slot_caps`)."""
 
     def __init__(self, num_classes: int, class_weights=None,
                  loss_composer=None, lambda_xm_src: float = 1.0,
@@ -108,8 +111,10 @@ class MM2D3DTask:
                  optimizer_2d: Optional[Dict[str, Any]] = None,
                  optimizer_3d: Optional[Dict[str, Any]] = None,
                  model2d: Optional[nn.Module] = None,
-                 model3d: Optional[nn.Module] = None, device="cuda"):
+                 model3d: Optional[nn.Module] = None, device="cuda",
+                 slot_profile: str = "default"):
         self.num_classes = num_classes
+        self.slot_profile = slot_profile
         self.loss_composer = loss_composer
         self.lambda_xm_src = lambda_xm_src
         self.lambda_xm_trg = lambda_xm_trg
@@ -170,6 +175,11 @@ class MM2D3DTask:
         self.model3d.to(self.device)
         self._reset_optimizers()
 
+    def build_topology(self, batch: PointBatch):
+        """The batch's default topology under the task's slot profile."""
+        return build_topology(batch, self.full_scale, self.num_planes,
+                              slot_profile=self.slot_profile)
+
     # -- forward ---------------------------------------------------------
 
     def _forward(self, batch: PointBatch, topo=None):
@@ -177,7 +187,7 @@ class MM2D3DTask:
         self.model3d.eval()
         batch = prepare_device_batch(batch)
         if topo is None:
-            topo = build_topology(batch, self.full_scale, self.num_planes)
+            topo = self.build_topology(batch)
         _, feats, labels, mask, _ = flatten_points(batch)
         p2, _, _ = self.model2d(batch.img, batch.depth, batch.img_indices,
                                 batch.point_mask)
@@ -227,9 +237,9 @@ class MM2D3DTask:
         trg = prepare_device_batch(trg)
         with torch.no_grad():  # not inference_mode: the backward reads the tables
             if topo_src is None:
-                topo_src = build_topology(src, self.full_scale, self.num_planes)
+                topo_src = self.build_topology(src)
             if topo_trg is None:
-                topo_trg = build_topology(trg, self.full_scale, self.num_planes)
+                topo_trg = self.build_topology(trg)
         return src, trg, topo_src, topo_trg
 
     def train_losses(self, src: PointBatch, trg: PointBatch, topo_src, topo_trg,

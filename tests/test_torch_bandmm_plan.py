@@ -4,7 +4,10 @@ flagship's default train step: the submanifold convs (input conv, 7 encoder
 and 6 decoder blocks, m = 16, 7 planes) in each slot tier of their level,
 the strided down and up convs, and the adjoints (K1 with Ci and Co
 swapped), at the voxel capacities and slot plans of a batch-8 topology
-(`default_capacities`, `default_slot_caps`), bf16.
+(`default_capacities`, `default_slot_caps`), bf16.  The same for the
+KITTI-family configs' `dense` slot profile: every call of their train step
+(batch 16 x 10,240 points) and every K1 call of their eval forward (batch
+8 x 16,384 points).
 
 K1's plan must cover each band exactly once, give the card's 132 SMs a
 block each wherever the voxels and channels allow, and size its scratch;
@@ -33,10 +36,10 @@ CAPS = default_capacities(BATCH * 8192, LEVELS, batch_size=BATCH)
 SPECS = default_slot_caps(LEVELS, CAPS)
 
 
-def _tiers(l):
+def _tiers(l, caps=CAPS, specs=SPECS):
     """(name, V, H) of level l's slot tiers: tier 1 (with the centre), the
     mid tier (3-tier levels) and the heavy tier."""
-    v, spec = CAPS[l], SPECS[l]
+    v, spec = caps[l], specs[l]
     if len(spec) == 5:
         h1, h2, h_max, vm, vh = spec
         return [("tier1", v, h1), ("mid", min(vm, v), h2 - h1),
@@ -45,7 +48,7 @@ def _tiers(l):
     return [("tier1", v, h_lo), ("heavy", min(vh, v), h_max - h_lo)]
 
 
-def _calls():
+def _calls(caps=CAPS, specs=SPECS):
     """{name: (K, V, H, Ci, Co)} of the K1 and K2 calls of one train step."""
     k1, k2 = {}, {}
     subm = [("input_conv", 0, 3, M)]
@@ -53,12 +56,12 @@ def _calls():
     subm += [(f"dec_l{l}_concat", l, 2 * M * (l + 1), M * (l + 1))
              for l in range(LEVELS - 1)]
     for name, l, ci, co in subm:
-        for tier, v, h in _tiers(l):
+        for tier, v, h in _tiers(l, caps, specs):
             k1[f"{name}_{tier}_fwd"] = (27, v, h, ci, co)
             k1[f"{name}_{tier}_adjoint"] = (27, v, h, co, ci)
             k2[f"{name}_{tier}"] = (27, v, h, ci, co)
     for l in range(LEVELS - 1):
-        v, c, c1 = CAPS[l], M * (l + 1), M * (l + 2)
+        v, c, c1 = caps[l], M * (l + 1), M * (l + 2)
         k1[f"down_l{l}_fwd"] = (8, v, 1, c, c1)
         k1[f"down_l{l}_adjoint"] = (8, v, 1, c1, c)
         k1[f"up_l{l + 1}_fwd"] = (8, v, 1, c1, c)
@@ -69,6 +72,21 @@ def _calls():
 
 
 K1_CALLS, K2_CALLS = _calls()
+
+
+def _dense(batch, points):
+    caps = default_capacities(batch * points, LEVELS, batch_size=batch, profile="dense")
+    return caps, default_slot_caps(LEVELS, caps, "dense")
+
+
+K1_KITTI, K2_KITTI = _calls(*_dense(16, 10240))
+K1_KITTI_EVAL, _ = _calls(*_dense(8, 16384))
+# every K1 call by case: the flagship's step, the KITTI step, the KITTI
+# eval forward (forward calls only); every K2 call: both steps
+ALL_K1 = {**K1_CALLS, **{f"kitti_train:{n}": c for n, c in K1_KITTI.items()},
+          **{f"kitti_eval:{n}": c for n, c in K1_KITTI_EVAL.items()
+             if n.endswith("_fwd")}}
+ALL_K2 = {**K2_CALLS, **{f"kitti_train:{n}": c for n, c in K2_KITTI.items()}}
 
 
 def test_the_flagship_step_has_these_calls():
@@ -83,16 +101,30 @@ def test_the_flagship_step_has_these_calls():
     assert K1_CALLS["up_l5_fwd"] == (8, 8192, 1, 96, 80)  # L5 -> L4
 
 
-@pytest.mark.parametrize("case", sorted(K1_CALLS))
+def test_the_kitti_step_and_eval_have_these_calls():
+    """The dense profile's L0 tiers: 30/64 and 6/64 of V in the mid and
+    heavy tier, 5 and 18 slots; V = 163,840 in training, 131,072 at eval."""
+    assert len(K1_KITTI) == len(K1_CALLS) and len(K2_KITTI) == len(K2_CALLS)
+    assert K1_KITTI["enc_l0_tier1_fwd"] == (27, 163840, 3, 16, 16)
+    assert K1_KITTI["enc_l0_mid_fwd"] == (27, 76800, 5, 16, 16)
+    assert K1_KITTI["enc_l0_heavy_fwd"] == (27, 15360, 18, 16, 16)
+    assert K1_KITTI["down_l0_fwd"] == (8, 163840, 1, 16, 32)
+    assert K2_KITTI["dec_l1_concat_mid"] == (27, 112640 * 30 // 64, 4, 64, 32)
+    assert K1_KITTI_EVAL["enc_l0_mid_fwd"] == (27, 61440, 5, 16, 16)
+    assert K1_KITTI_EVAL["enc_l0_heavy_fwd"] == (27, 12288, 18, 16, 16)
+    assert len([c for c in ALL_K1 if c.startswith("kitti_eval:")]) == len(K1_CALLS) // 2
+
+
+@pytest.mark.parametrize("case", sorted(ALL_K1))
 def test_k1_route(case):
-    k, v, h, ci, co = K1_CALLS[case]
+    k, v, h, ci, co = ALL_K1[case]
     assert B.slot_tensor_cores(torch.bfloat16, ci, h, k) == (ci != 3)
     assert not B.slot_tensor_cores(torch.float32, ci, h, k)
 
 
-@pytest.mark.parametrize("case", sorted(K1_CALLS))
+@pytest.mark.parametrize("case", sorted(ALL_K1))
 def test_k1_plan_covers_each_band_once_and_fills_the_card(case):
-    k, v, h, ci, co = K1_CALLS[case]
+    k, v, h, ci, co = ALL_K1[case]
     plan = B.apply_plan(k, v, h, ci, co)
     groups = T.tap_groups(k, plan.splits)
     assert [t for t0, t1 in groups for t in range(t0, t1)] == list(range(k))
@@ -116,9 +148,9 @@ def test_k1_plan_covers_each_band_once_and_fills_the_card(case):
         assert plan.splits > 1  # the short tiles the split is for
 
 
-@pytest.mark.parametrize("case", sorted(K2_CALLS))
+@pytest.mark.parametrize("case", sorted(ALL_K2))
 def test_k2_plan_covers_rows_and_voxels_once_and_fills_the_card(case):
-    k, v, h, ci, co = K2_CALLS[case]
+    k, v, h, ci, co = ALL_K2[case]
     plan = D.dw_plan(k, v, h, ci, co)
     chunks = [(c * plan.rows, min(v, (c + 1) * plan.rows)) for c in range(plan.chunks)]
     assert [i for a, b in chunks for i in range(a, b)] == list(range(v))
@@ -226,10 +258,11 @@ EDGES = {
 
 def _edge_and_flagship_cases():
     """(K, V, H, Ci, Co, with_xm, dup, tap13, hole, plan shape) per case:
-    the edge cases at their own shape, and every tensor-core flagship
-    call at 192 voxels with the plan of its real shape."""
+    the edge cases at their own shape, and every tensor-core forward call
+    of the flagship and the KITTI configs at 192 voxels with the plan of
+    its real shape."""
     out = {f"edge_{n}": c + ((c[0], c[1], c[2], c[3], c[4]),) for n, c in EDGES.items()}
-    for name, (k, v, h, ci, co) in K1_CALLS.items():
+    for name, (k, v, h, ci, co) in ALL_K1.items():
         if B.slot_tensor_cores(torch.bfloat16, ci, h, k) and name.endswith("fwd"):
             out[name] = (k, 192, h, ci, co, name.split("_")[-2] == "tier1" and k == 27,
                          False, False, 0, (k, v, h, ci, co))

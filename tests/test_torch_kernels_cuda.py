@@ -2,7 +2,8 @@
 PyTorch versions on the card, at edge shapes the flagship does not reach:
 ragged voxel counts, more than 128 output channels, Ci = 3 and 224, odd
 image sizes and crops, empty inputs, NaN, and the inputs the kernels
-refuse; the autograd Functions around them (the sparse-conv adjoints, the
+refuse, and the shapes the KITTI-family configs give K1, K2 (the dense
+slot profile's level-0 tiers) and K4 (their stem outputs); the autograd Functions around them (the sparse-conv adjoints, the
 dense form's included, the stem pool's and the fused head's backward) on
 the card against the same Functions on the CPU; and the 2D branch's
 train-mode gradients on the card against the CPU's.
@@ -76,6 +77,10 @@ BANDMM = {
     "split_dec_l5_concat": (4096, 8, 27, 192, 96, True, {}),
     "split_dec_l5_heavy": (1024, 18, 27, 192, 96, False, {}),
     "ci8_under_one_k_step": (650, 5, 27, 8, 16, True, {}),
+    # the dense slot profile's L0 tiers, KITTI train step (16 x 10,240)
+    "kitti_l0_tier1_centre": (163840, 3, 27, 16, 16, True, {}),
+    "kitti_l0_mid": (76800, 5, 27, 16, 16, False, {}),
+    "kitti_l0_heavy": (15360, 18, 27, 16, 16, False, {}),
 }
 
 
@@ -143,6 +148,10 @@ MAXPOOL = {
     "odd_h_even_w": (2, 17, 10, 64),
     "one_pixel": (1, 1, 1, 8),
     "c8": (3, 6, 5, 8),
+    # the stem outputs of the KITTI configs: 480x302 crops padded to
+    # 480x304, and SemanticKITTI's 1241x376 eval frames padded to 1248x384
+    "kitti_train_stem": (2, 152, 240, 64),
+    "skitti_eval_stem": (1, 192, 624, 64),
 }
 
 
@@ -189,6 +198,10 @@ BANDMM_DW = {
     "chunks_enc_l0_tier1": (65536, 3, 27, 16, 16, True, {}),
     "chunks_dec_l5_concat": (4096, 8, 27, 192, 96, True, {}),
     "up_conv_l5_to_l4": (8192, 1, 8, 96, 80, False, {}),
+    # the dense slot profile's L0 tiers, KITTI train step (16 x 10,240)
+    "kitti_l0_tier1_centre": (163840, 3, 27, 16, 16, True, {}),
+    "kitti_l0_mid": (76800, 5, 27, 16, 16, False, {}),
+    "kitti_l0_heavy": (15360, 18, 27, 16, 16, False, {}),
 }
 
 

@@ -15,15 +15,17 @@ from mm2d3d_tpu_torch.train.batch import prepare_device_batch
 DRYRUN = dict(batch_size=2, height=32, width=48, n_points=128, full_scale=256)
 FLAGSHIP_SCAN = dict(batch_size=1, height=225, width=400, n_points=8192,
                      full_scale=4096)
+KITTI_SCAN = dict(batch_size=1, height=302, width=480, n_points=10240,
+                  full_scale=4096, variant="kitti")
 FIELDS = ("img", "depth", "img_indices", "coords", "feats", "seg_label",
           "point_mask", "seg_labels_2d", "point_perm")
 
 
 @pytest.mark.parametrize("wire", [False, True])
 @pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("size", ["dryrun", "flagship_scan"])
+@pytest.mark.parametrize("size", ["dryrun", "flagship_scan", "kitti_scan"])
 def test_make_batch_bit_identical(seed, wire, size):
-    kw = DRYRUN if size == "dryrun" else FLAGSHIP_SCAN
+    kw = {"dryrun": DRYRUN, "flagship_scan": FLAGSHIP_SCAN, "kitti_scan": KITTI_SCAN}[size]
     port = make_batch(np.random.RandomState(seed), wire=wire, **kw)
     ref = make_batch_jax(np.random.RandomState(seed), wire=wire, **kw)
     for name in FIELDS:
@@ -34,6 +36,11 @@ def test_make_batch_bit_identical(seed, wire, size):
             assert_equal(a, b, name)
     assert port.coords_sorted == ref.coords_sorted
     assert port.feats_from_img == ref.feats_from_img == wire
+
+
+def test_make_batch_refuses_an_unknown_variant():
+    with pytest.raises(ValueError, match="unknown variant"):
+        make_batch(np.random.RandomState(0), variant="velodyne", **DRYRUN)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -13,12 +13,14 @@ from mm2d3d_tpu.data.synthetic import make_batch as make_batch_jax
 from mm2d3d_tpu.ops import hierarchy as HJ
 from mm2d3d_tpu.ops import keys as KJ
 from mm2d3d_tpu.ops.voxelize import voxelize as voxelize_jax
+from mm2d3d_tpu.train import batch as BJ
 from mm2d3d_tpu.train.batch import build_topology as build_topology_jax
 from mm2d3d_tpu_torch.data.synthetic import make_batch
 from mm2d3d_tpu_torch.ops import hierarchy as H
 from mm2d3d_tpu_torch.ops import keys as K
 from mm2d3d_tpu_torch.ops.kernels.propagate import propagate_slots, propagate_slots_ref
 from mm2d3d_tpu_torch.ops.voxelize import voxelize
+from mm2d3d_tpu_torch.train import batch as B
 from mm2d3d_tpu_torch.train.batch import build_topology
 
 GRID_FIELDS = ("key_hi", "key_lo", "coords", "batch", "valid", "num_voxels",
@@ -156,3 +158,54 @@ def test_build_topology_matches_jax(size):
     if size == "flagship":
         assert port_hier.levels[5].slot_srcm is None
         assert port_hier.levels[5].slot_src2 is not None
+
+
+@pytest.mark.parametrize("num_points", [2048, 65536, 131072, 163840])
+@pytest.mark.parametrize("profile", ["default", "dense"])
+def test_capacities_and_slot_caps_match_jax(profile, num_points):
+    """Both profiles' level capacities and slot specs over a sweep of point
+    counts, batch sizes and depths, and the specs of the JAX default
+    capacities (65,536 rows) without any."""
+    for batch_size in (None, 1, 4, 8, 16):
+        for levels in (3, 7):
+            caps = B.default_capacities(num_points, levels, batch_size, profile)
+            assert caps == BJ.default_capacities(num_points, levels, batch_size, profile)
+            assert (B.default_slot_caps(levels, caps, profile)
+                    == BJ.default_slot_caps(levels, caps, profile))
+    assert B.default_slot_caps(7, profile=profile) == BJ.default_slot_caps(7, profile=profile)
+
+
+def test_unknown_slot_profile_raises():
+    with pytest.raises(ValueError, match="unknown slot profile"):
+        B.default_slot_caps(7, B.default_capacities(8192, 7), "sparse")
+    with pytest.raises(ValueError, match="unknown slot profile"):
+        build_topology(make_batch(np.random.RandomState(0), **SIZES["dryrun"][0]),
+                       256, 3, slot_profile="sparse")
+
+
+KITTI = dict(batch_size=4, height=32, width=48, n_points=10240, num_classes=10,
+             full_scale=4096, variant="kitti")
+
+
+@pytest.mark.parametrize("profile", ["dense", "default"])
+def test_kitti_topology_matches_jax(profile):
+    """64-beam scans at batch 4 x 10,240 (tests/test_spconv.py's case): the
+    `dense` profile's tables identical to JAX's with no hit dropped; the
+    `default` profile drops hits there, the same number in both."""
+    port_grid, port_hier = build_topology(
+        make_batch(np.random.RandomState(0), **KITTI), 4096, 7, slot_profile=profile)
+    ref_grid, ref_hier = jax.jit(
+        lambda b: build_topology_jax(b, 4096, 7, slot_profile=profile)
+    )(jax_batch(make_batch_jax(np.random.RandomState(0), **KITTI)))
+    _compare(port_grid, ref_grid, GRID_FIELDS, "grid")
+    for l, (a, b) in enumerate(zip(port_hier.levels, ref_hier.levels)):
+        _compare(a, b, LEVEL_FIELDS, f"level{l}")
+        assert a.capacity == b.capacity
+    for l, (a, b) in enumerate(zip(port_hier.transitions, ref_hier.transitions)):
+        _compare(a, b, TRANS_FIELDS, f"trans{l}")
+    dropped = sum(int(l.slot_overflow) for l in port_hier.levels
+                  if l.slot_overflow is not None)
+    assert dropped == sum(int(l.slot_overflow) for l in ref_hier.levels
+                          if l.slot_overflow is not None)
+    assert (dropped == 0) == (profile == "dense")
+    assert all(int(l.num_voxels) < l.capacity for l in port_hier.levels)

@@ -10,9 +10,17 @@
   checkpoints.  One JAX fit serves the module.
 - Save, resume, and the resumed epoch bit-identical to the uninterrupted
   run (dropout on, AdamW with OneCycle).
+- configs/vkitti_skitti.yaml, shrunk (m=8, 3 planes, full_scale 256,
+  240x150 crops, fp32, SGD under its OneCycle), over fixture trees of
+  tests/test_torch_kitti_data.py: the port's and the JAX CLI's datamodule,
+  task (`run.build_task`, the dense slot profile) and Trainer, three train
+  steps, validation and test, every log within 1e-4 relative.  One JAX fit
+  serves the module.
 - The overflow warnings on both log paths; the CLI's fast_dev_run, run=test
-  with resume, and its refusals; the torchvision ResNet-34 import against
-  the JAX import mapped through `from_flax`.
+  with resume, and its refusals; configs/a2d2.yaml (its computed class
+  weights and `total_steps: auto` against the JAX CLI's) and
+  configs/day_night.yaml through the CLI; the torchvision ResNet-34 import
+  against the JAX import mapped through `from_flax`.
 """
 
 import json
@@ -28,6 +36,7 @@ import torch
 
 from _torch_port import jax_batch, near_tie, randomize_stats, to_numpy_tree
 from test_torch_data import write_nuscenes
+from test_torch_kitti_data import write_a2d2, write_semantic_kitti, write_virtual_kitti
 
 from mm2d3d_tpu.data.loader import Loader as LoaderJ
 from mm2d3d_tpu.data.nuscenes import NuScenesLidarSeg as NuScenesJ
@@ -294,7 +303,8 @@ def test_overflow_warning_without_logger(nusc, tmp_path, monkeypatch, capsys):
     from mm2d3d_tpu_torch.train import batch as B
 
     monkeypatch.setattr(B, "default_capacities",
-                        lambda num_points, num_levels, batch_size=None: (16,) * num_levels)
+                        lambda num_points, num_levels, batch_size=None, profile="default":
+                        (16,) * num_levels)
     _overflow_trainer(nusc, tmp_path).fit()
     out = capsys.readouterr().out
     assert "WARNING: train/voxel_overflow_levels" in out
@@ -443,9 +453,8 @@ def test_cli_worker_pools_then_stop_worker_server(workspace):
 @pytest.mark.parametrize("override,error", [
     ("run.distributed=true", NotImplementedError),
     ("logging.wandb.project=x", NotImplementedError),
-    ("dataset.name=a2d2_semantic_kitti", NotImplementedError),
     ("models.net2d.frozen_batch_norm=true", NotImplementedError),
-    ("train.slot_profile=dense", NotImplementedError),
+    ("models.net3d.backbone_3d.residual_blocks=true", NotImplementedError),
 ])
 def test_cli_refuses_what_is_not_ported(workspace, override, error):
     from mm2d3d_tpu_torch.run import main
@@ -453,6 +462,188 @@ def test_cli_refuses_what_is_not_ported(workspace, override, error):
     with pytest.raises(error, match="not ported"):
         main(["--config", str(workspace / "configs" / "config.yaml"),
               "--device", "cpu", override])
+
+
+# --------------------------------------------------------------------------
+# the KITTI-family scenarios and day/night through the configs as shipped
+# --------------------------------------------------------------------------
+
+SKITTI_HW = (160, 250)  # frames of the SemanticKITTI fixture: crops of 240x150
+SHRINK = ["models.net3d.backbone_3d.m=8", "models.net3d.backbone_3d.num_planes=3",
+          "models.net3d.backbone_3d.full_scale=256", "dataset.specific.full_scale=256",
+          "train.n_points=512", "train.eval_n_points=1024",
+          "train.compute_dtype=float32", "train.num_workers=0",
+          "run.batch_size=2", "run.test_batch_size=2"]
+KITTI_SHRINK = SHRINK + ["dataset.specific.crop_size=[240, 150]"]
+
+
+@pytest.fixture(scope="module")
+def kitti_trees(tmp_path_factory):
+    base = tmp_path_factory.mktemp("kitti_trainer")
+    rng = np.random.RandomState(8)
+    return {
+        "semantic_kitti": write_semantic_kitti(
+            str(base / "semantic_kitti"), rng, {"train": 6, "val": 3, "test": 3},
+            hw=SKITTI_HW),
+        "virtual_kitti": write_virtual_kitti(str(base / "virtual_kitti"), rng),
+        "a2d2": write_a2d2(str(base / "a2d2"), rng, scans=6),
+    }
+
+
+def kitti_paths(trees, source):
+    sk = trees["semantic_kitti"]
+    out = [f"dataset.target.preprocess_dir={sk}/preprocess",
+           f"dataset.target.semantic_kitti_dir={sk}"]
+    if source == "virtual_kitti":
+        return out + [f"dataset.source.preprocess_dir={trees[source]}/preprocess",
+                      f"dataset.source.virtual_kitti_dir={trees[source]}"]
+    return out + [f"dataset.source.preprocess_dir={trees[source]}"]
+
+
+def _cli_config(load, name, overrides):
+    """A config as both CLIs read it: the file, the overrides, then the
+    dataset's `train_overrides` merged into `train`."""
+    cfg = load(osp.join(REPO, "configs", name), overrides)
+    from mm2d3d_tpu_torch.utils.config import _deep_merge
+
+    cfg["train"] = _deep_merge(cfg["train"], cfg.pop("train_overrides"))
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def vkitti_fits(kitti_trees, tmp_path_factory):
+    """configs/vkitti_skitti.yaml, shrunk, through both packages' CLI
+    builders and Trainers: 3 steps, validation, test."""
+    import mm2d3d_tpu.data.augment as augment_jax
+    from mm2d3d_tpu import run as cli_jax
+    from mm2d3d_tpu.utils.config import load_config as load_config_jax
+    from mm2d3d_tpu_torch import run as cli
+    from mm2d3d_tpu_torch.utils.config import load_config
+
+    sgd = [f"models.{b}.optimizer.{k}={v}" for b in ("net2d", "net3d")
+           for k, v in (("name", "sgd"), ("momentum", 0.9))]
+    overrides = KITTI_SHRINK + sgd + kitti_paths(kitti_trees, "virtual_kitti")
+    cfg = _cli_config(load_config, "vkitti_skitti.yaml", overrides)
+    cfg_j = _cli_config(load_config_jax, "vkitti_skitti.yaml", overrides)
+    assert cfg == cfg_j and cfg["train"]["slot_profile"] == "dense"
+    classes = cfg["train"]["params"]["class_names"]
+    ckpts = tmp_path_factory.mktemp("kitti_ckpts")
+    common = dict(max_epochs=1, class_names=classes, limit_train_batches=3,
+                  limit_val_batches=2)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(augment_jax, "_USE_NATIVE", False)
+        mp.setattr(flax.linen.Dropout, "__call__",
+                   lambda self, x, deterministic=None, rng=None: x)
+        dm_j = cli_jax.build_datamodule(cfg_j)
+        cli_jax.resolve_auto_params(cfg_j, dm_j)
+        task_j = cli_jax.build_task(cfg_j, dm_j.num_classes)
+        log_j = Recorder()
+        trainer_j = TrainerJ(task_j, dm_j.source_train, dm_j.target_train,
+                             val_loader=dm_j.target_val, test_loader=dm_j.target_test,
+                             ckpt_dir=str(ckpts / "jax"), logger=log_j,
+                             prefetch_batches=0, **common)
+        state = task_j.init_state(jax.random.PRNGKey(1),
+                                  jax_batch(next(iter(dm_j.source_train))))
+        params2d = _biases_near_one(state.params2d, 4)
+        state = state.replace(params2d=params2d, opt2d=task_j.tx2d.init(params2d),
+                              stats2d=randomize_stats(state.stats2d, 5),
+                              stats3d=randomize_stats(state.stats3d, 6))
+        init = tuple(to_numpy_tree(t) for t in (state.params2d, state.stats2d,
+                                                state.params3d, state.stats3d))
+        trainer_j.state = state
+        trainer_j.fit()
+        test_j = trainer_j.test()
+    shutil.rmtree(ckpts / "jax")
+
+    dm = cli.build_datamodule(cfg)
+    cli.resolve_auto_params(cfg, dm)
+    task = cli.build_task(cfg, dm.num_classes, device="cpu")
+    task.load_flax(*init)
+    for enc in (task.model2d.rgb_backbone, task.model2d.depth_backbone):
+        enc.dropout_rate = 0.0
+    log_t = Recorder()
+    trainer = Trainer(task, dm.source_train, dm.target_train, val_loader=dm.target_val,
+                      test_loader=dm.target_test, ckpt_dir=str(ckpts / "port"),
+                      logger=log_t, **common)
+    trainer.initialized = True
+    trainer.fit()
+    test_t = trainer.test()
+    yield dict(trainers=(trainer, trainer_j), logs=(log_t, log_j),
+               tests=(test_t, test_j), classes=classes)
+    shutil.rmtree(ckpts)
+
+
+def test_vkitti_skitti_trainer_matches_jax(vkitti_fits):
+    trainer, trainer_j = vkitti_fits["trainers"]
+    assert trainer.task.slot_profile == trainer_j.task.slot_profile == "dense"
+    assert trainer.class_names == vkitti_fits["classes"] and len(trainer.class_names) == 6
+    log_t, log_j = (lg.train_logs() for lg in vkitti_fits["logs"])
+    assert [s for s, _ in log_t] == [s for s, _ in log_j] == [1, 2, 3]
+    for (step, lt), (_, lj) in zip(log_t, log_j):
+        assert set(lt) == set(lj), step
+        assert lt["train/nbr_slot_overflow"] == lt["train/voxel_overflow_levels"] == 0
+        for k in lj:
+            np.testing.assert_allclose(lt[k], lj[k], rtol=REL, atol=1e-7,
+                                       err_msg=f"step {step} {k}")
+    (_, ev_t), = [c for c in vkitti_fits["logs"][0].calls if "val/target/iou" in c[1]]
+    (_, ev_j), = [c for c in vkitti_fits["logs"][1].calls if "val/target/iou" in c[1]]
+    assert set(ev_t) == set(ev_j)
+    assert ev_t["val/target/nbr_slot_overflow"] == 0
+    for k in ev_j:
+        np.testing.assert_allclose(ev_t[k], ev_j[k], rtol=REL, atol=1e-6, err_msg=k)
+    test_t, test_j = vkitti_fits["tests"]
+    assert set(test_t) == set(test_j)
+    for k in test_j:
+        np.testing.assert_allclose(test_t[k], test_j[k], rtol=REL, atol=1e-6, err_msg=k)
+
+
+def test_a2d2_cli_resolves_auto_params_as_jax(kitti_trees, tmp_path, capsys):
+    """configs/a2d2.yaml, shrunk, through the port's CLI with fast_dev_run:
+    its computed class weights (`weight: compute`) and `total_steps: auto`
+    equal what the JAX CLI resolves from the same trees."""
+    from mm2d3d_tpu import run as cli_jax
+    from mm2d3d_tpu.utils.config import load_config as load_config_jax
+    from mm2d3d_tpu_torch.run import main
+
+    overrides = (KITTI_SHRINK + kitti_paths(kitti_trees, "a2d2")
+                 + ["dataset.specific.resize=[240, 150]"])
+    trainer, results = main(["--config", osp.join(REPO, "configs", "a2d2.yaml"),
+                             "--device", "cpu", *overrides, "run.fast_dev_run=true",
+                             f"train.out_dir={tmp_path / 'run'}"])
+    out = capsys.readouterr().out
+    cfg_j = _cli_config(load_config_jax, "a2d2.yaml", overrides)
+    cli_jax.resolve_auto_params(cfg_j, cli_jax.build_datamodule(cfg_j))
+    weights = cfg_j["losses"][0]["args"]["weight"]
+    assert len(weights) == 10
+    assert f"computed class weights: {weights}" in out
+    steps = cfg_j["models"]["net2d"]["optimizer"]["lr_scheduler"]["total_steps"]
+    assert steps == 29 * 3  # max_epochs x max(6 A2D2, 6 SemanticKITTI scans) / 2
+    assert f"total_steps=auto -> {steps}" in out
+    assert trainer.task.class_weights.tolist() == pytest.approx(weights, rel=1e-7)
+    assert trainer.task.slot_profile == "dense" and trainer.global_step == 2
+    assert trainer.class_names == cfg_j["train"]["params"]["class_names"]
+    assert {"test/target/iou", "test/target/iou_3d", "test/target/iou_avg"} <= set(results)
+
+
+def test_day_night_cli_fast_dev_run(tmp_path):
+    """configs/day_night.yaml, shrunk, through the port's CLI with
+    fast_dev_run, over a fake nuScenes tree of the day/night splits."""
+    from mm2d3d_tpu_torch.run import main
+
+    root = tmp_path / "nusc"
+    pre = write_nuscenes(str(root), np.random.RandomState(9), scans_per_split=4)
+    for old, new in (("train_usa", "train_day"), ("train_singapore", "train_night"),
+                     ("val_singapore", "val_night"), ("test_singapore", "test_night")):
+        shutil.move(osp.join(pre, old + ".pkl"), osp.join(pre, new + ".pkl"))
+    paths = [f"dataset.{d}.{k}={v}" for d in ("source", "target")
+             for k, v in (("preprocess_dir", pre), ("nuscenes_dir", root))]
+    trainer, results = main(["--config", osp.join(REPO, "configs", "day_night.yaml"),
+                             "--device", "cpu", *SHRINK, *paths,
+                             "dataset.specific.resize=[40, 22]", "run.fast_dev_run=true",
+                             f"train.out_dir={tmp_path / 'run'}"])
+    assert trainer.global_step == 2 and trainer.task.slot_profile == "default"
+    assert trainer.class_names == CLASSES
+    assert {"test/target/iou", "test/target/iou_3d", "test/target/iou_avg"} <= set(results)
 
 
 def test_pretrained_backbone_matches_jax_import(tmp_path):
