@@ -24,7 +24,15 @@ domain at 10,240 points, 480x302 crops, SemanticKITTI evaluated on whole
 1241x376 frames at batch 8) over synthetic SemanticKITTI, VirtualKITTI and
 A2D2 trees, holds K1-K4's launches to the hierarchies' prediction, and
 checks the dense profile's tables and fp32 forward card against CPU.
-Prints, in its last lines, the card (nvidia-smi name and power
+Phase 12 drives the training options: topologies built on the host (C++,
+`train.host_topology`) held table by table against the card's and in a
+bf16 train step bit for bit, and through the CLI over configs/config.yaml
+and configs/vkitti_skitti.yaml; the strided convs over child slots (K1 and
+K2 with K = 8) in the eval forward and the train step, their kernel calls
+against the plain versions, card against CPU in fp32; and the CLI over
+configs/config.yaml with frozen batch norm, residual blocks and gradient
+accumulation, 4 steps (2 updates), then a run resumed between two
+micro-steps.  Prints, in its last lines, the card (nvidia-smi name and power
 limit), one JSON line of kernel results, and one JSON line
 {"ok": true, "device": {...}}.  Any failed phase raises, and
 the script exits non-zero without the final line; it also refuses to run
@@ -401,16 +409,19 @@ def tiers(level) -> int:
     return 3 if level.slot_srcm is not None else (2 if level.slot_src2 is not None else 1)
 
 
-def expected_launches(hier) -> dict:
+def expected_launches(hier, residual: bool = False) -> dict:
     """Kernel launches of one forward, from the hierarchy: K3 at every level
     but the coarsest, K4 once per encoder, K1 once per tier of every
-    submanifold conv (input conv, encoder and decoder blocks) plus once per
-    strided conv."""
+    submanifold conv (input conv, encoder and decoder blocks, two per
+    block with `residual`) plus once per strided conv, and once more for
+    a down conv over child slots (its heavy tier)."""
     lv = hier.levels
     n = len(lv)
-    k1 = tiers(lv[0]) + sum(tiers(l) for l in lv) + sum(tiers(l) for l in lv[:-1])
-    return {"propagate": n - 1, "maxpool": 2, "bandmm": k1 + 2 * (n - 1),
-            "bandmm_dw": 0, "head2d": 0, "tapsum": 0}
+    blocks = sum(tiers(l) for l in lv) + sum(tiers(l) for l in lv[:-1])
+    k1 = tiers(lv[0]) + (2 if residual else 1) * blocks
+    k1 += sum(3 if t.cslot_src is not None else 2 for t in hier.transitions)
+    return {"propagate": n - 1, "maxpool": 2, "bandmm": k1, "bandmm_dw": 0,
+            "head2d": 0, "tapsum": 0}
 
 
 def run_slice(dev):
@@ -484,23 +495,33 @@ def run_slice(dev):
 # phase 5: card vs CPU, fp32, batch 2
 # --------------------------------------------------------------------------
 
-def compare_topology(batch, dev, slot_caps="default", slot_profile="default") -> int:
+def same_tables(a, b, what: str) -> int:
+    """Two topologies' tables identical (compared on the CPU) -> how many."""
+    (g_a, h_a), (g_b, h_b) = a, b
+    n_tables = 0
+    for x, y in [(g_a, g_b)] + list(zip(h_a.levels, h_b.levels)) + \
+            list(zip(h_a.transitions, h_b.transitions)):
+        for name, t in vars(x).items():
+            u = getattr(y, name)
+            if (t is None) != (u is None):
+                raise AssertionError(f"{what}: topology table {name} in one only")
+            if isinstance(t, torch.Tensor):
+                if not torch.equal(t.cpu(), u.cpu()):
+                    raise AssertionError(f"{what}: topology table {name} differs")
+                n_tables += 1
+    return n_tables
+
+
+def compare_topology(batch, dev, slot_caps="default", slot_profile="default",
+                     child_slot_caps=None) -> int:
     """Build the topology of a CPU batch on the card and on the CPU; every
     table must be identical.  Returns the number of tables."""
     from mm2d3d_tpu_torch.train.batch import build_topology
 
-    kw = dict(slot_caps=slot_caps, slot_profile=slot_profile)
-    (g_gpu, h_gpu) = build_topology(batch.to(dev), 4096, 7, **kw)
-    (g_cpu, h_cpu) = build_topology(batch, 4096, 7, **kw)
-    n_tables = 0
-    for a, b in [(g_gpu, g_cpu)] + list(zip(h_gpu.levels, h_cpu.levels)) + \
-            list(zip(h_gpu.transitions, h_cpu.transitions)):
-        for name, x in vars(a).items():
-            if isinstance(x, torch.Tensor):
-                if not torch.equal(x.cpu(), getattr(b, name)):
-                    raise AssertionError(f"topology table {name} differs")
-                n_tables += 1
-    return n_tables
+    kw = dict(slot_caps=slot_caps, slot_profile=slot_profile,
+              child_slot_caps=child_slot_caps)
+    return same_tables(build_topology(batch.to(dev), 4096, 7, **kw),
+                       build_topology(batch, 4096, 7, **kw), "card vs CPU")
 
 
 def make_task(device, optin: bool, compute_dtype=torch.float32):
@@ -517,25 +538,36 @@ def topo_for(batch, optin: bool):
     return dense_topology(batch) if optin else None
 
 
-def compare_card_cpu(dev, optin: bool = False) -> None:
+def child_slot_topology(batch):
+    """The default flagship topology with the strided convs over child
+    slots (`child_slot_caps="default"`)."""
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    with torch.no_grad():
+        return build_topology(batch, 4096, 7, child_slot_caps="default")
+
+
+def compare_card_cpu(dev, optin: bool = False, child_slots: bool = False) -> None:
     tasks = {}
     for d in (dev, torch.device("cpu")):
         t = make_task(d, optin)
         t.init_params(torch.Generator().manual_seed(1))
         tasks[d.type] = t
     batch = flagship_batch(5, 2, "cpu")
+    topo = child_slot_topology if child_slots else (lambda b: topo_for(b, optin))
 
-    n_tables = compare_topology(batch, dev, None if optin else "default")
+    n_tables = compare_topology(batch, dev, None if optin else "default",
+                                child_slot_caps="default" if child_slots else None)
     log(f"card vs CPU: {n_tables} topology tables identical")
 
     t0 = time.perf_counter()
     b_gpu = batch.to(dev)
-    topo_gpu = topo_for(b_gpu, optin)
+    topo_gpu = topo(b_gpu)
     out_gpu = tasks["cuda"].forward(b_gpu, topo=topo_gpu)
     m_gpu, logs_gpu = tasks["cuda"].eval_step(b_gpu, topo=topo_gpu)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    topo_cpu = topo_for(batch, optin)
+    topo_cpu = topo(batch)
     out_cpu = tasks["cpu"].forward(batch, topo=topo_cpu)
     m_cpu, logs_cpu = tasks["cpu"].eval_step(batch, topo=topo_cpu)
     log(f"fp32 batch 2: card {t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s "
@@ -586,19 +618,22 @@ TRAIN_TIMING = (3, 5)  # samples x steps
 TRAJECTORY_STEPS = 12
 
 
-def expected_train_launches(hiers) -> dict:
+def expected_train_launches(hiers, residual: bool = False,
+                            host_built: bool = False) -> dict:
     """Kernel launches of one train step, from the two domains' hierarchies:
     per domain, K1 twice per eval-forward launch (forward and input
     gradient), K2 once per eval-forward K1 launch (weight gradient), K3 per
-    topology and K4 per encoder as in the forward (the pool's backward is
-    PyTorch's)."""
+    topology (none for topologies built on the host) and K4 per encoder as
+    in the forward (the pool's backward is PyTorch's).  Over child slots
+    the count holds too: the down conv's two K1 and two K2 calls, the up
+    conv's input gradient's two K1 calls."""
     out = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0, "head2d": 0,
            "tapsum": 0}
     for hier in hiers:
-        ev = expected_launches(hier)
+        ev = expected_launches(hier, residual)
         out["bandmm"] += 2 * ev["bandmm"]
         out["bandmm_dw"] += ev["bandmm"]
-        out["propagate"] += ev["propagate"]
+        out["propagate"] += 0 if host_built else ev["propagate"]
         out["maxpool"] += ev["maxpool"]
     return out
 
@@ -690,7 +725,8 @@ def run_train(dev):
 # phase 7: card vs CPU, fp32, one train step at batch 2 per domain
 # --------------------------------------------------------------------------
 
-def compare_train_card_cpu(dev, optin: bool = False, seeds=(12, 13)) -> None:
+def compare_train_card_cpu(dev, optin: bool = False, seeds=(12, 13),
+                           child_slots: bool = False) -> None:
     """One fp32 train step on the card and on the CPU from the same weights
     and batches, dropout off.  Gradients are held per leaf against the
     largest CPU gradient of their branch, not the leaf's own maximum: fp32
@@ -712,17 +748,18 @@ def compare_train_card_cpu(dev, optin: bool = False, seeds=(12, 13)) -> None:
             enc.dropout_rate = 0.0
         tasks[d.type] = t
     src, trg = (flagship_batch(s, COMPARE_BATCH, "cpu") for s in seeds)
-    n_tables = sum(compare_topology(b, dev, None if optin else "default")
+    topo = child_slot_topology if child_slots else (lambda b: topo_for(b, optin))
+    n_tables = sum(compare_topology(b, dev, None if optin else "default",
+                                    child_slot_caps="default" if child_slots else None)
                    for b in (src, trg))
     log(f"card vs CPU: {n_tables} topology tables identical (both domains)")
 
     s_gpu, t_gpu = src.to(dev), trg.to(dev)
     logs_gpu = tasks["cuda"].train_step(s_gpu, t_gpu, torch.Generator(device=dev),
-                                        topo_for(s_gpu, optin), topo_for(t_gpu, optin))
+                                        topo(s_gpu), topo(t_gpu))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logs_cpu = tasks["cpu"].train_step(src, trg, torch.Generator(),
-                                       topo_for(src, optin), topo_for(trg, optin))
+    logs_cpu = tasks["cpu"].train_step(src, trg, torch.Generator(), topo(src), topo(trg))
     log(f"fp32 train step batch {COMPARE_BATCH} per domain on the CPU: "
         f"{time.perf_counter() - t0:.1f} s (host clock)")
     for name, b in logs_cpu.items():
@@ -986,10 +1023,11 @@ def synthetic_scan(rng, frame: str) -> dict:
     }
 
 
-def write_nuscenes_tree(root: str, seed: int = 0):
-    """The preprocess pickles and a decoded-image cache (`data.image_cache`
-    format: 400x225 uint8 frames of 1600x900 originals) under `root` ->
-    (preprocess dir, cache dir)."""
+def write_nuscenes_tree(root: str, seed: int = 0, splits=None):
+    """The preprocess pickles (`splits`: scans per split, CLI_SPLITS by
+    default) and a decoded-image cache (`data.image_cache` format: 400x225
+    uint8 frames of 1600x900 originals) under `root` -> (preprocess dir,
+    cache dir)."""
     import pickle
 
     import numpy as np
@@ -1006,7 +1044,7 @@ def write_nuscenes_tree(root: str, seed: int = 0):
         json.dump({"resize": list(CLI_RESIZE),
                    "orig_sizes": {rel: list(CLI_ORIG) for rel in frames}}, f)
     k = 0
-    for split, n in CLI_SPLITS.items():
+    for split, n in (splits or CLI_SPLITS).items():
         scans = []
         for _ in range(n):
             scans.append(synthetic_scan(rng, frames[k % CLI_FRAMES]))
@@ -1026,11 +1064,12 @@ def assert_same_state(a: dict, b: dict, what: str) -> int:
     return len(dict(tensor_leaves(a)))
 
 
-def run_cli(dev):
+def run_cli(dev, extra=(), what="phase 10"):
     """configs/config.yaml as shipped (batch 16 per domain, n_points 8192,
     m=16, 7 planes, full_scale 4096, bf16, AdamW + OneCycle) through
-    `mm2d3d_tpu_torch.run.main`: fit (3 train steps, validation and test on
-    2 batches each), then `run=test` with resume."""
+    `mm2d3d_tpu_torch.run.main`, with the `extra` overrides: fit (3 train
+    steps, validation and test on 2 batches each), then `run=test` with
+    resume."""
     import tempfile
 
     from mm2d3d_tpu_torch import run as cli
@@ -1049,7 +1088,7 @@ def run_cli(dev):
                                   ("image_cache_dir", cache))]
         overrides += [f"train.out_dir={out}", "run.max_epochs=1",
                       "run.limit_train_batches=3", "run.limit_val_batches=2",
-                      f"train.num_workers={CLI_WORKERS}"]
+                      f"train.num_workers={CLI_WORKERS}", *extra]
         log(f"synthetic nuScenes tree: {sum(CLI_SPLITS.values())} scans "
             f"{CLI_SPLITS}, {CLI_FRAMES} cached frames, "
             f"{time.perf_counter() - t0:.1f} s")
@@ -1138,7 +1177,7 @@ def run_cli(dev):
         f"steps 2-3, trainer loop wall), {scans * 1e3 / ms:.1f} scans/s; from "
         f"main() to the end of step 1 {ends[0] - t_fit:.1f} s (set-up: task, "
         f"loader workers, first batches); fit + validation + test {fit_s:.1f} s; "
-        f"peak memory {peak:.2f} GiB; phase 10 {seconds:.1f} s")
+        f"peak memory {peak:.2f} GiB; {what} {seconds:.1f} s")
     return launches, ms, peak, seconds
 
 
@@ -1308,12 +1347,14 @@ def check_hierarchy(hier, what: str) -> None:
             raise AssertionError(f"{what}: level {l} dropped {int(lev.slot_overflow)} hits")
 
 
-def run_kitti_config(dev, config: str, roots: dict, root: str):
-    """One KITTI-family config as shipped through `mm2d3d_tpu_torch.run.main`:
-    fit (3 train steps, validation and test on 2 batches each), then
-    `run=test` with resume.  Every topology the task builds is kept, so the
-    launches of K1-K4 are held against the hierarchies' prediction and both
-    overflow monitors are read on every train step and eval batch."""
+def run_kitti_config(dev, config: str, roots: dict, root: str, extra=()):
+    """One KITTI-family config as shipped through `mm2d3d_tpu_torch.run.main`,
+    with the `extra` overrides: fit (3 train steps, validation and test on 2
+    batches each), then `run=test` with resume.  Every topology the task
+    builds, and every one built on the host (`train.host_topology`) that a
+    train step is handed, is kept, so the launches of K1-K4 are held
+    against the hierarchies' prediction and both overflow monitors are read
+    on every train step and eval batch."""
     from mm2d3d_tpu_torch import run as cli
     from mm2d3d_tpu_torch.ops import kernels
     from mm2d3d_tpu_torch.tools.train_repro import snapshot
@@ -1322,29 +1363,35 @@ def run_kitti_config(dev, config: str, roots: dict, root: str):
 
     source, n_classes = KITTI_CONFIGS[config]
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", config)
-    out = os.path.join(root, "run_" + os.path.splitext(config)[0])
-    overrides = kitti_overrides(roots, source, out)
+    out = os.path.join(root, "run_" + os.path.splitext(config)[0]
+                       + ("_extra" if extra else ""))
+    overrides = kitti_overrides(roots, source, out) + list(extra)
     classes = load_config(path, overrides)["train"]["params"]["class_names"]
 
-    ends, builds = [], []  # train-step ends; (train?, hierarchy) per topology
+    # train-step ends; (kind, hierarchy) per topology: "train" and "eval"
+    # built by the task, "host" built on the host for a train step
+    ends, builds = [], []
     step, build = MM2D3DTask.train_step, MM2D3DTask.build_topology
 
-    def timed_step(self, *a, **kw):
-        logs = step(self, *a, **kw)
+    def timed_step(self, src, trg, gen, *topos):
+        builds.extend(("host", t[1]) for t in topos if t is not None)
+        logs = step(self, src, trg, gen, *topos)
         torch.cuda.synchronize()
         ends.append(time.perf_counter())
         return logs
 
     def kept_build(self, batch):
         topo = build(self, batch)
-        builds.append((not torch.is_inference_mode_enabled(), topo[1]))
+        builds.append(("eval" if torch.is_inference_mode_enabled() else "train",
+                       topo[1]))
         return topo
 
     def expected(kept):
         exp = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0,
                "head2d": 0, "tapsum": 0}
-        for train, hier in kept:
-            one = (expected_train_launches([hier]) if train else expected_launches(hier))
+        for kind, hier in kept:
+            one = (expected_launches(hier) if kind == "eval" else
+                   expected_train_launches([hier], host_built=kind == "host"))
             for name, n in one.items():
                 exp[name] += n
         return exp
@@ -1370,17 +1417,20 @@ def run_kitti_config(dev, config: str, roots: dict, root: str):
 
     if fit.task.slot_profile != "dense":
         raise AssertionError(f"{config}: slot profile {fit.task.slot_profile}")
-    n_train = sum(t for t, _ in fit_builds)
-    if len(ends) != 3 or fit.global_step != 3 or n_train != 6:
+    n_train = sum(k != "eval" for k, _ in fit_builds)
+    n_host = sum(k == "host" for k, _ in fit_builds)
+    if len(ends) != 3 or fit.global_step != 3 or n_train != 6 or \
+            n_host != (6 if fit.host_topology else 0):
         raise AssertionError(f"{config}: {len(ends)} train steps, global_step "
-                             f"{fit.global_step}, {n_train} train topologies")
+                             f"{fit.global_step}, {n_train} train topologies, "
+                             f"{n_host} of them built on the host")
     if len(fit_builds) - n_train != 6 or len(test_builds) != 2 or any(
-            t for t, _ in test_builds):
+            k != "eval" for k, _ in test_builds):
         raise AssertionError(f"{config}: {len(fit_builds) - n_train} eval batches in "
                              f"the fit (2 val, 2 + 2 test), {len(test_builds)} in the "
                              "resumed test")
-    for i, (train, hier) in enumerate(fit_builds + test_builds):
-        check_hierarchy(hier, f"{config} {'train' if train else 'eval'} topology {i}")
+    for i, (kind, hier) in enumerate(fit_builds + test_builds):
+        check_hierarchy(hier, f"{config} {kind} topology {i}")
     check_counts(launches, expected(fit_builds), f"{config} fit")
     check_counts(test_launches, expected(test_builds), f"{config} resumed test")
 
@@ -1438,7 +1488,8 @@ def run_kitti_config(dev, config: str, roots: dict, root: str):
         f"eval topologies; checkpoints last, best_2d, best_3d; resumed: all {n} "
         f"tensors of `last` bit-equal; fit launches {launches} (as predicted), "
         f"resumed test {test_launches}")
-    log(f"{config} train step, bf16, batch 16 per domain: {ms:.2f} ms/step (median "
+    log(f"{config}{' ' + ' '.join(extra) if extra else ''} train step, bf16, batch "
+        f"16 per domain: {ms:.2f} ms/step (median "
         f"of steps 2-3, trainer loop wall), {32 * 1e3 / ms:.1f} scans/s; from main() "
         f"to the end of step 1 {ends[0] - t_fit:.1f} s; fit + validation + test "
         f"{fit_s:.1f} s; peak memory {peak:.2f} GiB")
@@ -1501,6 +1552,389 @@ def run_kitti(dev):
             launches[config], ms[config], peak[config] = run_kitti_config(
                 dev, config, roots, root)
     return launches, ms, peak, time.perf_counter() - t0
+
+
+# --------------------------------------------------------------------------
+# phase 12: the training options: host topologies, child slots, frozen batch
+# norm, residual blocks, gradient accumulation
+# --------------------------------------------------------------------------
+
+def check_host_topologies(dev) -> dict:
+    """(a) Host-built topologies (`data.host_topology`, C++) copied to the
+    card equal the card's `build_topology`, table by table: the flagship
+    batch (default profile) and a 64-beam batch of 16 x 10,240 points
+    (dense profile).  Times the host build alone, three at once (the
+    loader's thread pool; each call's OpenMP loops use every core) and the
+    card's build (host wall after a synchronise).  -> {case: ms}"""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mm2d3d_tpu_torch import native
+    from mm2d3d_tpu_torch.data.host_topology import to_device, topology_for_batch
+    from mm2d3d_tpu_torch.tools.kernel_cases import KITTI_BATCH, kitti_batch
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    t0 = time.perf_counter()
+    native.lib()
+    log(f"host topology library: {os.path.basename(native.library_path())}, built or "
+        f"loaded in {time.perf_counter() - t0:.1f} s; {os.cpu_count()} host cores")
+    out = {}
+    for name, batch, profile in (
+            (f"flagship batch {BATCH}", flagship_batch(0, BATCH, "cpu"), "default"),
+            (f"64-beam batch {KITTI_BATCH} x 10240", kitti_batch(0, KITTI_BATCH, "cpu"),
+             "dense")):
+        def host():
+            return topology_for_batch(batch, 4096, 7, slot_profile=profile)
+
+        on_card = to_device(host(), dev)
+        with torch.no_grad():
+            card = build_topology(batch.to(dev), 4096, 7, slot_profile=profile)
+        n = same_tables(on_card, card, f"host vs card, {name}")
+        check_hierarchy(on_card[1], f"host topology, {name}")
+        samples = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            host()
+            samples.append(time.perf_counter() - t0)
+        alone = statistics.median(samples) * 1e3
+        with ThreadPoolExecutor(3) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(lambda _: host(), range(6)))
+            pooled = (time.perf_counter() - t0) / 6 * 1e3
+        samples = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                build_topology(batch.to(dev), 4096, 7, slot_profile=profile)
+            torch.cuda.synchronize()
+            samples.append(time.perf_counter() - t0)
+        card_ms = statistics.median(samples) * 1e3
+        built = host()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_device(built, dev)
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        log(f"{name} ({profile} profile): {n} host-built tables identical to the "
+            f"card's; host build {alone:.2f} ms alone (median of 3), {pooled:.2f} ms "
+            f"per topology with 3 at once; pack and copy to the card {copy_ms:.2f} ms; "
+            f"the card's build {card_ms:.2f} ms (host wall, batch on the card)")
+        out[profile] = {"host_ms": alone, "host_ms_3_threads": pooled,
+                        "card_build_ms": card_ms}
+    return out
+
+
+def check_host_train_step(dev) -> dict:
+    """(b) One bf16 train step at batch 8 per domain from one state, with the
+    card's topologies and with host-built ones copied to the card: the same
+    bits in every tensor phase 6 counts.  Then the step's time with each
+    (the host-built topologies ready before the step, as the loader's
+    prefetch has them), in turns."""
+    from mm2d3d_tpu_torch.data.host_topology import to_device, topology_for_batch
+    from mm2d3d_tpu_torch.flagship import flagship_task
+    from mm2d3d_tpu_torch.tools.train_repro import (
+        differing, restore, snapshot, tensor_leaves)
+
+    task = flagship_task(device=dev)
+    task.init_params(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cpu = [flagship_batch(s, BATCH, "cpu") for s in (10, 11)]
+    src, trg = (b.to(dev) for b in cpu)
+
+    def host_topos():
+        return [to_device(topology_for_batch(b, 4096, 7), dev) for b in cpu]
+
+    check_train_logs(task.train_step(src, trg, gen))  # warm-up
+    saved = snapshot(task, gen)
+    outs = []
+    for topos in ([None, None], host_topos()):
+        restore(task, gen, saved)
+        logs = task.train_step(src, trg, gen, *topos)
+        torch.cuda.synchronize()
+        check_train_logs(logs)
+        outs.append({**snapshot(task, gen),
+                     "logs": {k: v.detach().clone() for k, v in logs.items()}})
+    differ = differing(*outs)
+    n = len(dict(tensor_leaves(outs[0])))
+    if differ:
+        raise AssertionError(f"host vs card topologies: {len(differ)} of {n} tensors "
+                             f"differ: {differ[:10]}")
+    log(f"bf16 train step batch {BATCH} per domain from one state, card-built vs "
+        f"host-built topologies: all {n} tensors bit-identical")
+    topos = host_topos()
+    ms = {"card topologies": [], "host topologies": []}
+    for name in ("card topologies", "host topologies") * 2:
+        args = [None, None] if name == "card topologies" else topos
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            task.train_step(src, trg, gen, *args)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) / 5 * 1e3)
+    log("train step ms (2 samples of 5 steps each, in turns): " + "; ".join(
+        f"{k} {', '.join(f'{x:.2f}' for x in v)}" for k, v in ms.items()))
+    return {k: statistics.mean(v) for k, v in ms.items()}
+
+
+def run_child_slots(res: Results, dev) -> dict:
+    """(d) The strided convs over child slots at the flagship: K1 and K2 with
+    K = 8 against their plain versions (two calls bit-identical), launch
+    counts of two eval forwards and two train steps equal to the
+    hierarchies' prediction, both monitors 0; then the card's fp32 forward
+    and train step against the CPU's at phase 5's and 7's tolerances.
+    -> launches of the train steps."""
+    from mm2d3d_tpu_torch.flagship import flagship_task
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.ops.kernels.bandmm import slot_conv_apply, slot_conv_apply_ref
+    from mm2d3d_tpu_torch.ops.kernels.bandmm_dw import slot_conv_dw, slot_conv_dw_ref
+    from mm2d3d_tpu_torch.tools.kernel_cases import child_slot_forms
+
+    for dt in (torch.bfloat16, torch.float32):
+        for name, (xs, tap, w, g), k in child_slot_forms(dev):
+            xs, w, g = (t.to(dt).contiguous() for t in (xs, w, g))
+            for kernel, fn, ref_fn, other in (
+                    ("bandmm", lambda: slot_conv_apply(None, xs, tap, w),
+                     lambda: slot_conv_apply_ref(None, xs, tap, w), w),
+                    ("bandmm_dw", lambda: slot_conv_dw(None, xs, tap, g, k_taps=k),
+                     lambda: slot_conv_dw_ref(None, xs, tap, g, k_taps=k), g)):
+                out, again = fn(), fn()
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{kernel} {name} {dt}: two calls differ")
+                ref = ref_fn()
+                err = float((out - ref).abs().max())
+                route = slot_route(dt, xs.shape[2], xs.shape[0], k)
+                res.add(kernel, f"{name} {str(dt)[6:]} V={xs.shape[1]} [{route}]", err,
+                        K1_REL_TOL * float(ref.abs().max()), cuda_ms(fn),
+                        cuda_ms(ref_fn, reps=10),
+                        slot_bound(None, xs, tap, other, out, k, dt))
+
+    task = flagship_task(device=dev)
+    task.init_params(torch.Generator().manual_seed(0))
+    batches = [flagship_batch(s, BATCH, dev) for s in range(2)]
+    task.eval_step(batches[0], topo=child_slot_topology(batches[0]))  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    runs = []
+    for b in batches:
+        topo = child_slot_topology(b)
+        runs.append((task.eval_step(b, topo=topo)[1], topo[1]))
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    expected = dict.fromkeys(launches, 0)
+    for logs, hier in runs:
+        if float(logs["nbr_slot_overflow"]) != 0:
+            raise AssertionError("child slots: eval dropped hits")
+        check_hierarchy(hier, "child slots, eval")
+        for k, n in expected_launches(hier).items():
+            expected[k] += n
+    check_counts(launches, expected, "child slots eval")
+    log(f"child slots, eval: launch counts over {len(batches)} forwards {launches} "
+        "(as predicted)")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src, trg = flagship_batch(10, BATCH, dev), flagship_batch(11, BATCH, dev)
+
+    def step():
+        ts, tt = child_slot_topology(src), child_slot_topology(trg)
+        return task.train_step(src, trg, gen, ts, tt), (ts[1], tt[1])
+
+    check_train_logs(step()[0])
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    hiers = []
+    for _ in range(2):
+        logs, hs = step()
+        check_train_logs(logs)
+        hiers += hs
+    torch.cuda.synchronize()
+    train_launches = kernels.counts()
+    for h in hiers:
+        check_hierarchy(h, "child slots, train")
+        for t in h.transitions:
+            if int(t.cslot_overflow) != 0:
+                raise AssertionError(f"child slots dropped {int(t.cslot_overflow)}")
+    check_counts(train_launches, expected_train_launches(hiers), "child slots train")
+    log(f"child slots, train: launch counts over 2 steps {train_launches} (as "
+        "predicted); both monitors 0")
+    samples = {"plain child tables": [], "child slots": []}
+    for name in list(samples) * 2:
+        topo = (lambda b: None) if name == "plain child tables" else child_slot_topology
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for b in batches:
+                task.forward(b, topo=topo(b))
+        torch.cuda.synchronize()
+        samples[name].append((time.perf_counter() - t0) / 6 * 1e3)
+    log(f"eval forward ms per batch of {BATCH} (2 samples of 6, in turns), topology "
+        "included: " + "; ".join(f"{k} {', '.join(f'{x:.2f}' for x in v)}"
+                                 for k, v in samples.items()))
+    compare_card_cpu(dev, child_slots=True)
+    # phase 9's seeds: at phase 7's, one L0 ReLU input lies within rounding
+    # of its kink, and the CPU's child-slot sums put it on the other side
+    # from the card's (as the CPU's dense sums do; compare_train_card_cpu)
+    compare_train_card_cpu(dev, seeds=(20, 21), child_slots=True)
+    return train_launches
+
+
+OPTION_SPLITS = {"train_usa": 64, "train_singapore": 64, "val_singapore": 32,
+                 "test_singapore": 32}  # 4 train pairs of 16
+OPTIONS = ["models.net2d.frozen_batch_norm=true",
+           "models.net3d.backbone_3d.residual_blocks=true",
+           "models.net2d.optimizer.accumulate_steps=2",
+           "models.net3d.optimizer.accumulate_steps=2"]
+
+
+def run_options_cli(dev) -> dict:
+    """(e) configs/config.yaml with frozen batch norm, residual blocks and
+    accumulate_steps=2 on both branches through the CLI: 4 train steps (2
+    updates) with finite losses, K1-K4's launches equal to the prediction
+    with the residual blocks' second conv, no level at capacity, and each
+    step's slot monitor equal to the hits its two topologies' tables
+    dropped (the default slot plan drops some at level 4 on one of these
+    synthetic batches: reported, not hidden); then a fit of 3 steps, whose
+    `last` lies between two micro-steps, and `run=test` resumed from it:
+    bit-equal.  -> the 4-step fit's launches and the hits dropped per
+    step."""
+    import tempfile
+
+    from mm2d3d_tpu_torch import run as cli
+    from mm2d3d_tpu_torch.models.resnet2d import ConvBN
+    from mm2d3d_tpu_torch.models.sparse_unet import ResidualBlock
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.tools.train_repro import snapshot
+    from mm2d3d_tpu_torch.train.optim import MultiSteps
+    from mm2d3d_tpu_torch.train.step import MM2D3DTask
+
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "config.yaml")
+    builds = []
+    build = MM2D3DTask.build_topology
+
+    def kept_build(self, batch):
+        topo = build(self, batch)
+        builds.append((not torch.is_inference_mode_enabled(), topo[1]))
+        return topo
+
+    with tempfile.TemporaryDirectory() as root:
+        pre, cache = write_nuscenes_tree(root, seed=1, splits=OPTION_SPLITS)
+        paths = [f"dataset.{d}.{k}={v}" for d in ("source", "target")
+                 for k, v in (("preprocess_dir", pre), ("nuscenes_dir", root),
+                              ("image_cache_dir", cache))]
+        common = paths + OPTIONS + ["run.max_epochs=1", "run.limit_val_batches=2",
+                                    f"train.num_workers={CLI_WORKERS}"]
+        out4, out3 = os.path.join(root, "run4"), os.path.join(root, "run3")
+        MM2D3DTask.build_topology = kept_build
+        try:
+            kernels.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fit, _ = cli.main(["--config", config, *common, f"train.out_dir={out4}",
+                               "run.limit_train_batches=4"])
+            fit_s = time.perf_counter() - t0
+            launches = kernels.counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            MM2D3DTask.build_topology = build
+        task = fit.task
+        if fit.global_step != 4 or task.step != 4:
+            raise AssertionError(f"options fit: global_step {fit.global_step}")
+        if not (isinstance(task.opt2d, MultiSteps) and isinstance(task.opt3d, MultiSteps)
+                and task.opt2d.k == task.opt3d.k == 2 and task.opt2d.mini_step == 0):
+            raise AssertionError("options fit: no gradient accumulation")
+        if not all(m.frozen for m in task.model2d.rgb_backbone.modules()
+                   if isinstance(m, ConvBN)) or not any(
+                isinstance(m, ResidualBlock) for m in task.model3d.modules()):
+            raise AssertionError("options fit: frozen batch norm or residual blocks off")
+        exp = dict.fromkeys(launches, 0)
+        for train, hier in builds:
+            for l, lev in enumerate(hier.levels):
+                if int(lev.num_voxels) >= lev.capacity:
+                    raise AssertionError(f"options fit: level {l} at capacity")
+            one = (expected_train_launches([hier], residual=True) if train
+                   else expected_launches(hier, residual=True))
+            for name, n in one.items():
+                exp[name] += n
+        if sum(t for t, _ in builds) != 8:
+            raise AssertionError(f"options fit: {len(builds)} topologies")
+        check_counts(launches, exp, "options fit")
+        with open(os.path.join(out4, "metrics.jsonl")) as f:
+            train = [ln for ln in map(json.loads, f) if "train/loss_total" in ln]
+        if len(train) != 4:
+            raise AssertionError(f"options fit: {len(train)} train log lines")
+        drops = [sum(int(t) for t in [lev.slot_overflow for lev in h.levels]
+                     + [tr.cslot_overflow for tr in h.transitions] if t is not None)
+                 for t_, h in builds if t_]
+        per_step = [drops[2 * i] + drops[2 * i + 1] for i in range(4)]
+        for ln, dropped in zip(train, per_step):
+            bad = {k: v for k, v in ln.items() if not math.isfinite(v)}
+            if bad:
+                raise AssertionError(f"options step {ln['step']}: non-finite {bad}")
+            if ln["train/voxel_overflow_levels"] != 0 or \
+                    ln["train/nbr_slot_overflow"] != dropped:
+                raise AssertionError(f"options step {ln['step']}: monitors "
+                                     f"{ln['train/voxel_overflow_levels']}, "
+                                     f"{ln['train/nbr_slot_overflow']} vs {dropped}")
+        log(f"options fit (frozen batch norm, residual blocks, accumulate_steps=2): "
+            f"4 steps, 2 updates, losses " + ", ".join(
+                f"{ln['train/loss_total']:.4f}" for ln in train)
+            + f"; launches {launches} (as predicted, the residual blocks' second "
+            f"conv included); hits dropped by the slot tables per step {per_step} "
+            f"(= train/nbr_slot_overflow), no level at capacity; fit + validation + "
+            f"test {fit_s:.1f} s; peak memory {peak:.2f} GiB")
+
+        odd, _ = cli.main(["--config", config, *common, f"train.out_dir={out3}",
+                           "run.limit_train_batches=3"])
+        if odd.global_step != 3 or odd.task.opt3d.mini_step != 1:
+            raise AssertionError(f"3-step fit: step {odd.global_step}, micro-step "
+                                 f"{odd.task.opt3d.mini_step}")
+        tester, results = cli.main(["--config", config, *common, f"train.out_dir={out3}",
+                                    "run=test", "run.resume=true"])
+        saved = torch.load(os.path.join(out3, "ckpts", "last.pt"), map_location=dev,
+                           weights_only=True)
+        resumed = snapshot(tester.task, tester.generator)
+        n = assert_same_state(saved, resumed, "options resumed vs saved")
+        assert_same_state(snapshot(odd.task, odd.generator), resumed,
+                          "options resumed vs fitted")
+        if tester.task.opt3d.mini_step != 1:
+            raise AssertionError("resumed at another micro-step")
+        log(f"options, `last` after step 3 (between two micro-steps): run=test resumed "
+            f"from it, all {n} tensors (the accumulated gradients and micro-step "
+            f"counts included) bit-equal; test IoU 2D/3D/avg " + "/".join(
+                f"{results[f'test/target/iou{h}']:.4f}" for h in ("", "_3d", "_avg")))
+    return {"launches": launches, "peak": peak, "dropped_per_step": per_step}
+
+
+def run_options(res: Results, dev, cli_ms: float, kitti_ms: dict) -> dict:
+    """Phase 12 -> what the JSON line and the summary report."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    log("phase 12a: host-built topologies vs the card's")
+    host = check_host_topologies(dev)
+    log("phase 12b: bf16 train step with host-built topologies")
+    step_ms = check_host_train_step(dev)
+    log("phase 12c: the CLI with train.host_topology=true")
+    _, host_cli_ms, host_cli_peak, _ = run_cli(dev, ["train.host_topology=true"],
+                                               "phase 12c")
+    with tempfile.TemporaryDirectory() as root:
+        roots = write_kitti_trees(root)
+        _, host_kitti_ms, host_kitti_peak = run_kitti_config(
+            dev, "vkitti_skitti.yaml", roots, root, ["train.host_topology=true"])
+    log(f"CLI ms/step with host topologies vs the card's (phases 10, 11 in this "
+        f"call): config.yaml {host_cli_ms:.2f} vs {cli_ms:.2f}; vkitti_skitti.yaml "
+        f"{host_kitti_ms:.2f} vs {kitti_ms['vkitti_skitti.yaml']:.2f}; peak memory "
+        f"{host_cli_peak:.2f} and {host_kitti_peak:.2f} GiB")
+    log("phase 12d: the strided convs over child slots")
+    child_launches = run_child_slots(res, dev)
+    log("phase 12e: frozen batch norm, residual blocks, accumulate_steps=2 "
+        "through the CLI")
+    options = run_options_cli(dev)
+    seconds = time.perf_counter() - t0
+    log(f"phase 12: {seconds:.1f} s")
+    return {"host": host, "step_ms": step_ms, "host_cli_ms": host_cli_ms,
+            "host_kitti_ms": host_kitti_ms, "child_launches": child_launches,
+            "options": options, "seconds": seconds}
 
 
 def descendants() -> list:
@@ -1615,6 +2049,16 @@ def run_phases(dev) -> int:
     log(f"phase 11: {len(running)} server processes of the loader pools stopped; "
         f"no process of this script left running; phase 11 {kitti_s:.1f} s")
 
+    log("phase 12: the training options (host topologies, child slots, frozen "
+        "batch norm, residual blocks, gradient accumulation), full width")
+    opts = run_options(res, dev, cli_ms, kitti_ms)
+    running = descendants()
+    left = stop_processes()
+    if left:
+        raise AssertionError(f"processes still running after phase 12: {left}")
+    log(f"phase 12: {len(running)} server processes of the loader pools stopped; "
+        "no process of this script left running")
+
     from mm2d3d_tpu_torch.ops import kernels
 
     main_case = {"propagate": "L0 ", "maxpool": f"({BATCH}, 240, 400, 64) float32",
@@ -1626,7 +2070,11 @@ def run_phases(dev) -> int:
     # phase 4 (K1, K3, K4), the train step of phase 6 (K2), the opt-in eval
     # forward of phase 8 (K5, K6); "cli_launches": phase 10's fit through
     # the CLI (K1-K4); "kitti_launches": phase 11's fit of each KITTI config;
-    # "kitti_case": the kernel at the KITTI configs' shapes (phase 3)
+    # "kitti_case": the kernel at the KITTI configs' shapes (phase 3);
+    # "child_slot_launches": phase 12d's two train steps over child slots;
+    # "options_launches": phase 12e's 4-step fit with residual blocks;
+    # "child_slot_case": K1 / K2 over the child slots, down L0 -> L1, tier 1
+    # (phase 12d)
     path_launches = {"bandmm_dw": train_launches["bandmm_dw"],
                      "tapsum": optin_launches["tapsum"],
                      "head2d": optin_launches["head2d"]}
@@ -1648,6 +2096,13 @@ def run_phases(dev) -> int:
                                  "bound_ms": c[6], "bound_by": c[7]}
                                 for c in res.cases if c[0] == name and "KITTI" in c[1]),
                                None),
+            "child_slot_launches": opts["child_launches"][name],
+            "options_launches": opts["options"]["launches"][name],
+            "child_slot_case": next(({"case": c[1], "ms": c[4], "plain_ms": c[5],
+                                      "bound_ms": c[6], "bound_by": c[7]}
+                                     for c in res.cases if c[0] == name and
+                                     c[1].startswith("child slots down L0->L1 tier1")),
+                                    None),
         })
     log(f"slice: {slice_ms:.2f} ms/batch of {BATCH}, {BATCH * 1e3 / slice_ms:.1f} scans/s")
     log(f"train: {train_ms:.2f} ms/step of 2 x {BATCH}, "
@@ -1659,6 +2114,14 @@ def run_phases(dev) -> int:
     for config, ms in kitti_ms.items():
         log(f"CLI {config}: {ms:.2f} ms/step of 2 x 16, {32 * 1e3 / ms:.1f} scans/s, "
             f"peak {kitti_peak[config]:.2f} GiB")
+    log(f"CLI with train.host_topology=true: config.yaml {opts['host_cli_ms']:.2f}, "
+        f"vkitti_skitti.yaml {opts['host_kitti_ms']:.2f} ms/step; train step batch "
+        f"{BATCH}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in opts["step_ms"].items())
+        + "; host build per topology: " + ", ".join(
+            f"{p} {v['host_ms']:.2f} ms alone, {v['host_ms_3_threads']:.2f} with 3 "
+            f"threads, card {v['card_build_ms']:.2f}" for p, v in opts["host"].items())
+        + f"; options fit, hits dropped per step {opts['options']['dropped_per_step']}"
+        + f"; phase 12 {opts['seconds']:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

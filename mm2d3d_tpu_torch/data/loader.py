@@ -252,6 +252,37 @@ def prefetched(gen, depth: int = 2):
         t.join()
 
 
+_TOPOLOGY_THREADS = 3  # the JAX package's pool
+_TOPOLOGY_DEPTH = 4  # pairs in flight
+
+
+def prefetch_topology_pairs(pairs, full_scale: int, num_levels: int,
+                            slot_profile: str = "default"):
+    """(src, trg) batch pairs -> (src, trg, topo_src, topo_trg): both
+    domains' topologies built on the CPU (`data.host_topology`, under the
+    task's `slot_profile`) in a pool of 3 threads, 4 pairs ahead; the C++
+    calls release the GIL.  Closing the generator waits for the pairs in
+    flight."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .host_topology import topology_for_batch
+
+    def job(pair):
+        return (*pair, *(topology_for_batch(b, full_scale, num_levels,
+                                            slot_profile=slot_profile)
+                         for b in pair))
+
+    it = iter(pairs)
+    with ThreadPoolExecutor(max_workers=_TOPOLOGY_THREADS) as pool:
+        pending = deque(pool.submit(job, p)
+                        for p in itertools.islice(it, _TOPOLOGY_DEPTH))
+        while pending:
+            done = pending.popleft()
+            for p in itertools.islice(it, 1):
+                pending.append(pool.submit(job, p))
+            yield done.result()
+
+
 def stop_worker_server() -> None:
     """Stop the forkserver and resource-tracker processes that worker pools
     start, and wait for both to exit; the next pool starts them anew.  Call

@@ -13,6 +13,8 @@ names mirror the flax tree, so every leaf maps by its path:
     sparse kernel (27|8, Ci, Co)      -> weight, unchanged
     bias                              -> bias
     BatchNorm scale / mean / var      -> weight / running_mean / running_var
+    frozen BatchNorm bn_scale, bn_bias, bn_mean, bn_var and the residual
+    blocks' nin_kernel (cin, cout)    -> the same names, unchanged
 
 `to_flax` is the inverse: state_dicts (or any name -> tensor maps with the
 same keys, such as the parameters' gradients) back to flax-shaped trees of
@@ -47,8 +49,14 @@ def _kernel(a: np.ndarray, module: str) -> np.ndarray:
     raise ValueError(f"unexpected kernel rank {a.ndim} at {module}")
 
 
-_PARAM_LEAF = {"bias": "bias", "scale": "weight", "kernel": "weight"}
-_STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+# leaves that keep their name and layout: the frozen BatchNorm's and the
+# residual blocks' 1x1 shortcut kernel (`x @ nin_kernel`)
+_SAME_PARAM = ("bn_scale", "bn_bias", "nin_kernel")
+_SAME_STAT = ("bn_mean", "bn_var")
+_PARAM_LEAF = {"bias": "bias", "scale": "weight", "kernel": "weight",
+               **{k: k for k in _SAME_PARAM}}
+_STAT_LEAF = {"mean": "running_mean", "var": "running_var",
+              **{k: k for k in _SAME_STAT}}
 
 
 def _state_dict(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
@@ -97,6 +105,8 @@ def _trees(sd: Mapping[str, Union[torch.Tensor, np.ndarray]]):
                        dtype=np.float32)
         if leaf in _FLAX_STAT:
             tree, name = stats, _FLAX_STAT[leaf]
+        elif leaf in _SAME_PARAM:
+            tree, name = params, leaf
         elif leaf == "bias":
             tree, name = params, "bias"
         elif leaf == "weight":

@@ -13,6 +13,9 @@ decoder-tail pieces, which are then never concatenated; wherever
 `head2d.supports` refuses the shapes, the unfused head runs, as in JAX.
 Train and eval mode follow `nn.Module.train()`; in train mode both
 encoders' dropout draws from the generator passed to `forward`.
+`frozen_batch_norm` freezes the BatchNorms of the RGB stem and encoder
+(`resnet2d.frozen_bn`), as in JAX; the depth branch and the decoder keep
+theirs.
 """
 
 from __future__ import annotations
@@ -61,15 +64,15 @@ class FuseStage(nn.Module):
 class Net2DSeg(nn.Module):
     def __init__(self, num_classes: int,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 fused_head: bool = False):
+                 fused_head: bool = False, frozen_batch_norm: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.compute_dtype = compute_dtype
         self.fused_head = fused_head
         cd = compute_dtype
-        self.stem_rgb = StemParams(3)
+        self.stem_rgb = StemParams(3, frozen_bn=frozen_batch_norm)
         self.stem_depth = StemParams(1)
-        self.rgb_backbone = ResNet34Encoder(cd)
+        self.rgb_backbone = ResNet34Encoder(cd, frozen_bn=frozen_batch_norm)
         self.depth_backbone = ResNet34Encoder(cd)
         self.up5 = UpStage(1024, 256, cd)
         self.fuse4 = FuseStage(3 * 256, 256, cd)
@@ -92,7 +95,7 @@ class Net2DSeg(nn.Module):
         x4 = torch.cat([img, depth], 1).to(cd)
         out = F.conv2d(x4.contiguous(memory_format=torch.channels_last), k,
                        padding=3)
-        return self.stem_rgb.bn(out[:, :64]), self.stem_depth.bn(out[:, 64:])
+        return self.stem_rgb.norm(out[:, :64]), self.stem_depth.norm(out[:, 64:])
 
     def forward(self, img: torch.Tensor, depth: torch.Tensor,
                 img_indices: torch.Tensor, point_mask: torch.Tensor,

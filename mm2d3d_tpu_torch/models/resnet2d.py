@@ -6,7 +6,10 @@ run in `compute_dtype`; every BatchNorm computes in fp32 and returns fp32, as
 flax `BatchNorm(dtype=float32)` does, with batch statistics in train mode
 (`nn.Module.train()`).  Dropout after layer3 and layer4 is active in train
 mode and draws from the generator the caller passes.  Module names follow
-the flax tree (`layer1_0.cb1.conv`, ...).
+the flax tree (`layer1_0.cb1.conv`, ...).  With `frozen_bn` (the RGB stem
+and encoder of `Net2DSeg(frozen_batch_norm=True)`) each BatchNorm takes the
+flax ConvBN's frozen form instead (`frozen_bn`), which returns the conv's
+dtype.
 """
 
 from __future__ import annotations
@@ -54,6 +57,25 @@ class BatchNorm2d(nn.Module):
         return (x - mean.view(c)) * mul.view(c) + self.bias.view(c)
 
 
+def add_frozen_bn(module: nn.Module, c: int) -> None:
+    """The frozen BatchNorm's leaves, named as flax names them beside the
+    conv: `bn_scale` and `bn_bias` are parameters (the optimizer updates
+    them), `bn_mean` and `bn_var` fixed statistics."""
+    module.bn_scale = nn.Parameter(torch.ones(c))
+    module.bn_bias = nn.Parameter(torch.zeros(c))
+    module.register_buffer("bn_mean", torch.zeros(c))
+    module.register_buffer("bn_var", torch.ones(c))
+
+
+def frozen_bn(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """FrozenBatchNorm2d over NCHW as the flax ConvBN's frozen form:
+    (x - mean) * rsqrt(var + 1e-5) * scale + bias in fp32, in train and
+    eval mode alike, returned in x's dtype."""
+    c = (1, -1, 1, 1)
+    y = (x.float() - module.bn_mean.view(c)) * torch.rsqrt(module.bn_var + 1e-5).view(c)
+    return (y * module.bn_scale.view(c) + module.bn_bias.view(c)).to(x.dtype)
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax `nn.Dropout`: where(keep, x / (1 - rate), 0) with keep ~
@@ -79,26 +101,31 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias, stride: int,
 
 class ConvBN(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, frozen: bool = False):
         super().__init__()
         self.stride, self.padding = stride, kernel // 2
         self.compute_dtype = compute_dtype
+        self.frozen = frozen
         self.conv = nn.Conv2d(cin, cout, kernel, bias=False)
-        self.bn = BatchNorm2d(cout)
+        if frozen:
+            add_frozen_bn(self, cout)
+        else:
+            self.bn = BatchNorm2d(cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(conv2d(x, self.conv.weight, None, self.stride,
-                              self.padding, self.compute_dtype))
+        y = conv2d(x, self.conv.weight, None, self.stride, self.padding,
+                   self.compute_dtype)
+        return frozen_bn(self, y) if self.frozen else self.bn(y)
 
 
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, frozen_bn: bool = False):
         super().__init__()
-        self.cb1 = ConvBN(cin, cout, 3, stride, compute_dtype)
-        self.cb2 = ConvBN(cout, cout, 3, 1, compute_dtype)
+        self.cb1 = ConvBN(cin, cout, 3, stride, compute_dtype, frozen_bn)
+        self.cb2 = ConvBN(cout, cout, 3, 1, compute_dtype, frozen_bn)
         self.downsample = (
-            ConvBN(cin, cout, 1, stride, compute_dtype)
+            ConvBN(cin, cout, 1, stride, compute_dtype, frozen_bn)
             if stride != 1 or cin != cout else None
         )
 
@@ -123,7 +150,7 @@ class ResNet34Encoder(nn.Module):
 
     def __init__(self, compute_dtype: torch.dtype,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 dropout_rate: float = 0.4):
+                 dropout_rate: float = 0.4, frozen_bn: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
         cin = 64
@@ -133,7 +160,8 @@ class ResNet34Encoder(nn.Module):
             for b in range(blocks):
                 stride = 2 if (b == 0 and i > 0) else 1
                 name = f"layer{i + 1}_{b}"
-                self.add_module(name, BasicBlock(cin, width, stride, compute_dtype))
+                self.add_module(name, BasicBlock(cin, width, stride, compute_dtype,
+                                                 frozen_bn))
                 names.append(name)
                 cin = width
             self.block_names.append(names)
@@ -153,9 +181,18 @@ class ResNet34Encoder(nn.Module):
 
 
 class StemParams(nn.Module):
-    """One encoder stem's 7x7 kernel and BatchNorm, for the fused dual stem."""
+    """One encoder stem's 7x7 kernel and BatchNorm (or, with `frozen_bn`,
+    the frozen form's leaves), for the fused dual stem."""
 
-    def __init__(self, cin: int):
+    def __init__(self, cin: int, frozen_bn: bool = False):
         super().__init__()
+        self.frozen = frozen_bn
         self.conv = nn.Conv2d(cin, 64, 7, bias=False)
-        self.bn = BatchNorm2d(64)
+        if frozen_bn:
+            add_frozen_bn(self, 64)
+        else:
+            self.bn = BatchNorm2d(64)
+
+    def norm(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem's BatchNorm of its conv output."""
+        return frozen_bn(self, x) if self.frozen else self.bn(x)

@@ -6,7 +6,8 @@ Module and parameter names follow the flax tree (`net_3d.unet.enc_0_0.conv`,
 kernels keep the JAX layout (K, Cin, Cout).  Convolutions run in
 `compute_dtype` and return fp32.  Batch norms take the statistics of the
 valid rows in train mode (`nn.Module.train()`) and their running statistics
-in eval mode.
+in eval mode.  With `residual_blocks` the U-Net's blocks are SCN residual
+blocks (`ResidualBlock`) instead of VGG blocks.
 """
 
 from __future__ import annotations
@@ -93,15 +94,39 @@ class VGGBlock(nn.Module):
         return self.conv(torch.relu(self.bn(x, level.valid)), level)
 
 
+class ResidualBlock(nn.Module):
+    """SCN residual block: shortcut + (BN -> ReLU -> SubmConv) x 2; the
+    shortcut is the input, or its 1x1 product with `nin_kernel` (cin, cout)
+    where the widths differ."""
+
+    def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype):
+        super().__init__()
+        if cin != cout:
+            self.nin_kernel = nn.Parameter(torch.empty(cin, cout))
+        else:
+            self.register_parameter("nin_kernel", None)
+        self.bn1 = MaskedBatchNorm(cin)
+        self.conv1 = SubmConv(cin, cout, compute_dtype)
+        self.bn2 = MaskedBatchNorm(cout)
+        self.conv2 = SubmConv(cout, cout, compute_dtype)
+
+    def forward(self, x: torch.Tensor, level: GridLevel) -> torch.Tensor:
+        shortcut = x if self.nin_kernel is None else x @ self.nin_kernel
+        y = self.conv1(torch.relu(self.bn1(x, level.valid)), level)
+        y = self.conv2(torch.relu(self.bn2(y, level.valid)), level)
+        return shortcut + y
+
+
 class SparseUNet(nn.Module):
-    """Encoder: per level, VGG blocks, then BN-ReLU + stride-2 conv down.
-    Decoder: BN-ReLU + deconv up, concat [enc_l, up], VGG blocks."""
+    """Encoder: per level, VGG (or residual) blocks, then BN-ReLU + stride-2
+    conv down.  Decoder: BN-ReLU + deconv up, concat [enc_l, up], blocks."""
 
     def __init__(self, planes: Sequence[int], reps: int,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, residual: bool = False):
         super().__init__()
         self.planes = list(planes)
         self.reps = reps
+        block = ResidualBlock if residual else VGGBlock
         n = len(planes)
         for l in range(n):
             if l > 0:
@@ -110,13 +135,13 @@ class SparseUNet(nn.Module):
                                 DownConv(planes[l - 1], planes[l], compute_dtype))
             for r in range(reps):
                 self.add_module(f"enc_{l}_{r}",
-                                VGGBlock(planes[l], planes[l], compute_dtype))
+                                block(planes[l], planes[l], compute_dtype))
         for l in range(n - 2, -1, -1):
             self.add_module(f"up_bn_{l}", MaskedBatchNorm(planes[l + 1]))
             self.add_module(f"up_{l}", UpConv(planes[l + 1], planes[l], compute_dtype))
             for r in range(reps):
                 cin = 2 * planes[l] if r == 0 else planes[l]
-                self.add_module(f"dec_{l}_{r}", VGGBlock(cin, planes[l], compute_dtype))
+                self.add_module(f"dec_{l}_{r}", block(cin, planes[l], compute_dtype))
 
     def forward(self, x: torch.Tensor, hier: Hierarchy) -> torch.Tensor:
         n = len(self.planes)
@@ -144,11 +169,12 @@ class UNetSCN3D(nn.Module):
     `ops.voxelize`)."""
 
     def __init__(self, in_channels: int, m: int, block_reps: int,
-                 num_planes: int, compute_dtype: torch.dtype):
+                 num_planes: int, compute_dtype: torch.dtype,
+                 residual_blocks: bool = False):
         super().__init__()
         planes = [(i + 1) * m for i in range(num_planes)]
         self.input_conv = SubmConv(in_channels, m, compute_dtype)
-        self.unet = SparseUNet(planes, block_reps, compute_dtype)
+        self.unet = SparseUNet(planes, block_reps, compute_dtype, residual_blocks)
         self.out_bn = MaskedBatchNorm(m)
 
     def forward(self, voxel_feats: torch.Tensor, hier: Hierarchy) -> torch.Tensor:
@@ -164,11 +190,12 @@ class Net3DSeg(nn.Module):
 
     def __init__(self, num_classes: int, in_channels: int = 3, m: int = 16,
                  block_reps: int = 1, num_planes: int = 7,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 residual_blocks: bool = False):
         super().__init__()
         self.linear_rgb_mask = nn.Linear(in_channels, 1)
         self.net_3d = UNetSCN3D(in_channels, m, block_reps, num_planes,
-                                compute_dtype)
+                                compute_dtype, residual_blocks)
         self.linear = nn.Linear(m, num_classes)
         self.aux_linear_point = nn.Linear(m, num_classes)
 

@@ -38,6 +38,7 @@ _CONSTANTS = {
     # ax * 9 + ay * 3 + az of the 3x3x3 tap grid
     "corners": np.array([ax * 9 + ay * 3 + az for ax, ay, az
                          in itertools.product((0, 1), repeat=3)], np.int64),
+    "octants": np.arange(8, dtype=np.int32),  # the child table's taps
 }
 
 
@@ -84,6 +85,15 @@ class LevelTransition:
     parent: torch.Tensor  # (Vf,) int32 in [0, Vc]; Vc = dump
     off_id: torch.Tensor  # (Vf,) int32 in [0, 8)
     child: torch.Tensor  # (Vc, 8) int32 in [0, Vf]; Vf = missing
+    # the child table packed into slots (`build_child_slots`): the first
+    # h_lo children of every parent, the rest of the few heavier parents in
+    # a compacted table; the tap of a slot is the child's octant
+    cslot_src: Optional[torch.Tensor] = None  # (h_lo, Vc) int32; Vf = empty
+    cslot_tap: Optional[torch.Tensor] = None  # (h_lo, Vc) int32; 8 = empty
+    cslot_idx: Optional[torch.Tensor] = None  # (Vh,) int32; Vc = pad
+    cslot_src2: Optional[torch.Tensor] = None  # (8 - h_lo, Vh)
+    cslot_tap2: Optional[torch.Tensor] = None
+    cslot_overflow: Optional[torch.Tensor] = None  # () int32 dropped children
 
 
 @dataclass
@@ -178,6 +188,41 @@ def finish_slots_split(nbr, cnt, h_lo, h_max, vh_cap):
     return idx, src2, tap2, _over_tail(cnt, h_max) + un
 
 
+def build_child_slots(child: torch.Tensor, vf: int, h_lo: int, vh_cap: int):
+    """The (Vc, 8) child table packed into slots, as the JAX
+    `build_child_slots`: tier 1 holds the first `h_lo` present children of
+    every parent (tap = octant, in octant order), the heavy tier the rest
+    for the first `vh_cap` parents with more.  A parent has at most 8
+    children, so only the heavy tier's capacity can drop one (counted).
+    -> (src1 (h_lo, Vc), tap1, idx (vh_cap,), src2 (8 - h_lo, vh_cap),
+    tap2, dropped () int32)."""
+    vc = child.shape[0]
+    octants = _on_device("octants", child.device)
+    src1, tap1, cnt = rank_slots(child.T, vf, h_lo, 0, octants, 8)
+    heavy = cnt > h_lo
+    idx, _ = _compact_indices(heavy, vh_cap, vc)
+    child_pad = torch.cat([child, child.new_full((1, 8), vf)])
+    src2, tap2, _ = rank_slots(child_pad[idx.long()].T, vf, 8 - h_lo, h_lo,
+                               octants, 8)
+    over = heavy & (torch.cumsum(heavy.to(torch.int32), 0, dtype=torch.int32)
+                    > vh_cap)
+    dropped = torch.where(over, cnt - h_lo, 0).sum(dtype=torch.int32)
+    return src1, tap1, idx, src2, tap2, dropped
+
+
+def child_slot_spec(child_slot_caps, l: int, vc: int):
+    """Transition l's (h_lo, vh_cap), or None: `"default"` is (3, max(256,
+    Vc / 4)) at every transition (JAX's default), a sequence gives one spec
+    (or None) per transition."""
+    if child_slot_caps is None:
+        return None
+    if isinstance(child_slot_caps, str):
+        if child_slot_caps != "default":
+            raise ValueError(f"unknown child slot caps {child_slot_caps!r}")
+        return 3, max(256, vc // 4)
+    return child_slot_caps[l]
+
+
 def _tier1(nbr: torch.Tensor, h1: int):
     """Tier-1 slots and hit counts from a dense table (the coarsest level,
     which is not propagated)."""
@@ -253,7 +298,7 @@ def _check_spec(l: int, spec: SlotSpec) -> SlotSpec:
 def build_hierarchy(grid: VoxelGrid, num_levels: int,
                     capacities: Sequence[int],
                     slot_caps: Optional[Sequence[SlotSpec]],
-                    num_batches: int) -> Hierarchy:
+                    num_batches: int, child_slot_caps=None) -> Hierarchy:
     """All U-Net levels from the level-0 grid.
 
     `slot_caps[l]` takes every form the JAX `build_hierarchy` takes: a
@@ -266,11 +311,24 @@ def build_hierarchy(grid: VoxelGrid, num_levels: int,
     The coarsest level's table comes from `build_nbr`; every finer one from
     `propagate_nbr_slots` (K3), which also yields its tier-1 slots.  A
     level without slots takes K3's table with h1 = 0: the same table as the
-    JAX package's select tree (`propagate_nbr`), from one launch."""
+    JAX package's select tree (`propagate_nbr`), from one launch.
+
+    `child_slot_caps` packs each transition's child table into slots
+    (`build_child_slots`; "default" or one (h_lo, vh_cap) or None per
+    transition, `child_slot_spec`), which the strided convolutions then
+    take (`ops.spconv.down_conv2`, `up_conv2`); None (the default) keeps
+    the plain child table, as in JAX."""
     grids: List[VoxelGrid] = [grid]
     transitions: List[LevelTransition] = []
     for l in range(1, num_levels):
         grid_c, trans = _coarsen_grid(grids[-1], capacity=capacities[l])
+        spec = child_slot_spec(child_slot_caps, l - 1, grid_c.capacity)
+        if spec is not None:
+            h_lo, vh_cap = spec
+            (trans.cslot_src, trans.cslot_tap, trans.cslot_idx, trans.cslot_src2,
+             trans.cslot_tap2, trans.cslot_overflow) = build_child_slots(
+                trans.child, grids[-1].capacity, h_lo,
+                min(vh_cap, grid_c.capacity))
         grids.append(grid_c)
         transitions.append(trans)
     specs = [_check_spec(l, slot_caps[l])

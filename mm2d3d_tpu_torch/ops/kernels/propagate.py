@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+from typing import Optional
 
 import torch
 
@@ -54,19 +55,24 @@ def _tap_ids(device: torch.device) -> torch.Tensor:
                         dtype=torch.int32, device=device)
 
 
-def rank_slots(nbr_k: torch.Tensor, miss: int, num_slots: int, rank0: int):
+def rank_slots(nbr_k: torch.Tensor, miss: int, num_slots: int, rank0: int,
+               tap_ids: Optional[torch.Tensor] = None, miss_tap: int = MISS_TAP):
     """Pack each column's hits of the (26, V) off-centre table into slots
     rank0 .. rank0 + num_slots - 1, in ascending-tap order.
 
-    Returns (src (H, V), tap (H, V), cnt (V,)); empty slots are (miss, 27)
-    and `cnt` counts all hits.
+    Returns (src (H, V), tap (H, V), cnt (V,)); empty slots are (miss,
+    `miss_tap`) and `cnt` counts all hits.  `tap_ids` (K,) names the rows'
+    taps for another table (the (8, Vc) child table: its octants 0-7, with
+    `miss_tap` 8); by default the rows are the 26 off-centre taps.
 
     Each hit's slot is its exclusive prefix count along the taps minus
     rank0; ONE scatter per table places every hit (ranks are unique within
     a column, and hits outside the slot window land on a dump row that is
     cut off), so the op count does not grow with the number of slots."""
     kk, v = nbr_k.shape
-    k_ids = _tap_ids(nbr_k.device)[:, None].expand(kk, v)
+    if tap_ids is None:
+        tap_ids = _tap_ids(nbr_k.device)
+    k_ids = tap_ids[:, None].expand(kk, v)
     hit = nbr_k != miss
     hit_i = hit.to(torch.int32)
     cnt = hit_i.sum(0, dtype=torch.int32)
@@ -74,7 +80,7 @@ def rank_slots(nbr_k: torch.Tensor, miss: int, num_slots: int, rank0: int):
     slot = torch.where(hit & (slot >= 0) & (slot < num_slots), slot,
                        num_slots).long()
     src = nbr_k.new_full((num_slots + 1, v), miss).scatter_(0, slot, nbr_k)
-    tap = nbr_k.new_full((num_slots + 1, v), MISS_TAP).scatter_(0, slot, k_ids)
+    tap = nbr_k.new_full((num_slots + 1, v), miss_tap).scatter_(0, slot, k_ids)
     return src[:num_slots], tap[:num_slots], cnt
 
 

@@ -6,7 +6,10 @@ the per-tap weights into fp32:
 
 - submanifold 3^3 over the 3-tier, 2-tier or 1-tier slot tables of a level;
 - the stride-2 down convolution (per-tap product + segment sum over the
-  Morton-sorted parent ids) and the stride-2 transposed convolution.
+  Morton-sorted parent ids) and the stride-2 transposed convolution, or,
+  where the hierarchy packed the child tables into slots
+  (`hierarchy.build_child_slots`), the down convolution as K1 over the child
+  slots (K = 8) and the transposed convolution's input gradient likewise.
 
 A level without slot tables takes the dense 27-tap submanifold conv
 (`_SubmDense`): all 27 neighbour rows gathered by the level's `nbr` table
@@ -295,13 +298,72 @@ class _Up(torch.autograd.Function):
         return d_coarse.to(coarse.dtype), d_weight.to(weight.dtype), None
 
 
+class _DownSlots(torch.autograd.Function):
+    """Strided down conv over the child slots (`_down_apply_slots`;
+    backward `_down_slots_bwd`): K1 over the h_lo slots of every parent and
+    over the compacted heavy tier, whose rows add to theirs (each parent at
+    most once, so each sum has one term)."""
+
+    @staticmethod
+    def forward(ctx, fine, weight, trans: LevelTransition):
+        padded = _pad_zero_row(fine)
+        x1 = _take(padded, trans.cslot_src)  # (h_lo, Vc, Ci)
+        out = slot_conv_apply(None, x1, trans.cslot_tap, weight)
+        x2 = _take(padded, trans.cslot_src2)  # (8 - h_lo, Vh, Ci)
+        out = _scatter_add_rows(out, trans.cslot_idx, slot_conv_apply(
+            None, x2, trans.cslot_tap2, weight))
+        ctx.save_for_backward(weight)
+        ctx.res = (x1, x2, trans)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (weight,) = ctx.saved_tensors
+        x1, x2, trans = ctx.res
+        g = g.to(x1.dtype).contiguous()
+        # transpose of down conv = deconv through (parent, off_id), as dense
+        d_fine = _up_apply_raw(g, weight.transpose(1, 2).contiguous(),
+                               trans.parent, trans.off_id)
+        g_hi = _take(_pad_zero_row(g), trans.cslot_idx)  # (Vh, Co)
+        d_weight = (slot_conv_dw(None, x1, trans.cslot_tap, g, k_taps=8)
+                    + slot_conv_dw(None, x2, trans.cslot_tap2, g_hi, k_taps=8))
+        return d_fine.to(x1.dtype), d_weight.to(weight.dtype), None
+
+
+class _UpSlots(_Up):
+    """Transposed stride-2 conv whose input gradient runs over the child
+    slots (`_up_apply_slots`; backward `_up_slots_bwd`): the forward and
+    the weight gradient are `_Up`'s."""
+
+    @staticmethod
+    def backward(ctx, g):
+        coarse, weight = ctx.saved_tensors
+        trans = ctx.trans
+        vc = coarse.shape[0]
+        g = g.to(coarse.dtype).contiguous()
+        # transpose of deconv = down conv through the child slots
+        w_t = weight.transpose(1, 2).contiguous()
+        g_pad = _pad_zero_row(g)
+        d_coarse = slot_conv_apply(None, _take(g_pad, trans.cslot_src),
+                                   trans.cslot_tap, w_t)
+        d_coarse = _scatter_add_rows(d_coarse, trans.cslot_idx, slot_conv_apply(
+            None, _take(g_pad, trans.cslot_src2), trans.cslot_tap2, w_t))
+        gp = _take(_pad_zero_row(coarse), torch.clamp(trans.parent, max=vc))
+        d_weight = _down_dw(gp, trans.off_id, g)
+        return d_coarse.to(coarse.dtype), d_weight.to(weight.dtype), None
+
+
 def down_conv2(fine_feats: torch.Tensor, trans: LevelTransition,
                weight: torch.Tensor,
                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Strided down convolution (filter 2, stride 2): fine -> coarse sites.
 
     out[c] = sum over children f of c of fine[f] @ weight[off_id[f]];
-    weight (8, Cin, Cout) in `hierarchy.OFFSETS_8` order."""
+    weight (8, Cin, Cout) in `hierarchy.OFFSETS_8` order.  Over the child
+    slots where the transition has them (`trans.cslot_src`)."""
+    if trans.cslot_src is not None:
+        return _DownSlots.apply(fine_feats.to(compute_dtype),
+                                weight.to(compute_dtype).contiguous(), trans)
     return _Down.apply(fine_feats.to(compute_dtype),
                        weight.to(compute_dtype).contiguous(), trans,
                        trans.child.shape[0])
@@ -311,9 +373,12 @@ def up_conv2(coarse_feats: torch.Tensor, trans: LevelTransition,
              weight: torch.Tensor,
              compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Transposed stride-2 convolution back onto the fine site set:
-    out[f] = coarse[parent[f]] @ weight[off_id[f]] (dumped parents -> 0)."""
-    return _Up.apply(coarse_feats.to(compute_dtype),
-                     weight.to(compute_dtype).contiguous(), trans)
+    out[f] = coarse[parent[f]] @ weight[off_id[f]] (dumped parents -> 0);
+    the input gradient runs over the child slots where the transition has
+    them (`trans.cslot_src`)."""
+    fn = _UpSlots if trans.cslot_src is not None else _Up
+    return fn.apply(coarse_feats.to(compute_dtype),
+                    weight.to(compute_dtype).contiguous(), trans)
 
 
 # ---------------------------------------------------------------------------

@@ -51,24 +51,18 @@ def build_task(cfg: Dict, num_classes: int, device="cuda"):
         raise ValueError(
             f"losses: {len(cw)} cross-entropy class weights but the dataset "
             f"has num_classes={num_classes}")
-    for flag, where, item in (
-            (cfg["models"]["net2d"].get("frozen_batch_norm", False),
-             "models.net2d.frozen_batch_norm", 3),
-            (m3.get("residual_blocks", False),
-             "models.net3d.backbone_3d.residual_blocks", 3)):
-        if flag:
-            raise NotImplementedError(
-                f"{where} is not ported to mm2d3d_tpu_torch yet "
-                f"({_QUEUE.format(item)})")
+    frozen = cfg["models"]["net2d"].get("frozen_batch_norm", False)
+    residual = m3.get("residual_blocks", False)
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         cfg["train"].get("compute_dtype", "bfloat16")]
     name2d = cfg["models"]["net2d"].get("name", "net2d")
     name3d = cfg["models"]["net3d"].get("name", "net3d")
     model2d = load_model(name2d, num_classes=num_classes, compute_dtype=dtype,
+                         frozen_batch_norm=frozen,
                          **cfg["models"]["net2d"].get("args", {}))
     model3d = load_model(
         name3d, num_classes=num_classes, in_channels=m3.get("in_channels", 3),
-        m=m3["m"], block_reps=m3.get("block_reps", 1),
+        m=m3["m"], block_reps=m3.get("block_reps", 1), residual_blocks=residual,
         num_planes=m3["num_planes"], compute_dtype=dtype,
         **cfg["models"]["net3d"].get("args", {}))
     task = MM2D3DTask(
@@ -81,7 +75,9 @@ def build_task(cfg: Dict, num_classes: int, device="cuda"):
         num_planes=m3["num_planes"],
         m=m3["m"],
         block_reps=m3.get("block_reps", 1),
+        residual_blocks=residual,
         in_channels_3d=m3.get("in_channels", 3),
+        frozen_batch_norm=frozen,
         compute_dtype=dtype,
         optimizer_2d=cfg["models"]["net2d"]["optimizer"],
         optimizer_3d=cfg["models"]["net3d"]["optimizer"],
@@ -230,6 +226,7 @@ def main(argv=None):
         strict_eval_points=cfg["train"].get("strict_eval_points", False),
         strict_eval_overflow=cfg["train"].get("strict_eval_overflow", False),
         prefetch_batches=cfg["train"].get("prefetch_batches", 2),
+        host_topology=cfg["train"].get("host_topology", False),
     )
     try:
         trainer.init_or_resume(resume=run_cfg.get("resume", False))

@@ -1,8 +1,9 @@
 """What `chip_smoke.py` and the K1/K2 tools (`tools/slotconv_ab.py`,
 `tools/slotconv_tiles.py`) share: the flagship batch, the device timer, and
 K1's and K2's call forms at the flagship's shapes, at the KITTI-family
-configs' level-0 tiers (the dense slot profile, batch 16 x 10,240 points)
-and at the tensor-core kernels' edges.
+configs' level-0 tiers (the dense slot profile, batch 16 x 10,240 points),
+over the strided convs' child slots (K = 8, H = 3 and 5) and at the
+tensor-core kernels' edges.
 
 The imports of the package sit inside the functions and name it in full,
 so that `tools/slotconv_ab.py` can load this file beside another checkout's
@@ -168,6 +169,37 @@ def k2_forms(dev, seed: int = 2, kitti: bool = False):
             + [strided(0, 16, 32)]
             + subm(5, 192, 96, "dec L5 (concat)", True)
             + [strided(5, 96, 112), strided(4, 96, 80, up=True)])
+
+
+def child_slot_forms(dev, seed: int = 3):
+    """(name, (x_src, tap, w, g), K = 8) in fp32 for the strided convs' calls
+    over child slots (`child_slot_caps="default"`) in a batch-8 flagship
+    topology: the down conv L0 -> L1 and L5 -> L6 in tier 1 (H = 3, every
+    coarse voxel) and in the heavy tier (H = 5, the compacted parents).  K1
+    takes (x_src, tap, w), K2 (x_src, tap, g), g at the tier's rows as the
+    weight gradient takes it."""
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    hier = build_topology(flagship_batch(0, BATCH, dev), 4096, 7,
+                          child_slot_caps="default")[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    forms = []
+    for l, ci, co in ((0, 16, 32), (5, 96, 112)):
+        t = hier.transitions[l]
+        vf, vc = hier.levels[l].capacity, hier.levels[l + 1].capacity
+        x = torch.cat([rnd(vf, ci), torch.zeros((1, ci), device=dev)])
+        g = torch.cat([rnd(vc, co), torch.zeros((1, co), device=dev)])
+        w = rnd(8, ci, co) * 0.1
+        for tier, src, tap, rows in (("tier1", t.cslot_src, t.cslot_tap, None),
+                                     ("heavy", t.cslot_src2, t.cslot_tap2, t.cslot_idx)):
+            gt = g[:vc] if rows is None else g[rows.long()]
+            forms.append((f"child slots down L{l}->L{l + 1} {tier} K=8 H={src.shape[0]} "
+                          f"{ci}->{co}", (x[src.long()], tap, w, gt), 8))
+    return forms
 
 
 # name: (V, H, K, Ci, Co, with_xm, tap options)

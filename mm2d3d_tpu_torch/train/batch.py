@@ -163,13 +163,16 @@ def default_slot_caps(num_levels: int,
 def build_topology(batch: PointBatch, full_scale: int, num_levels: int,
                    capacities: Optional[Tuple[int, ...]] = None,
                    slot_caps="default", slot_profile: str = "default",
-                   ) -> Tuple[VoxelGrid, Hierarchy]:
+                   child_slot_caps=None) -> Tuple[VoxelGrid, Hierarchy]:
     """Voxelize the batch and build the sparse U-Net hierarchy, as the JAX
     `build_topology`: `capacities` default to `default_capacities`;
     `slot_caps="default"` takes `default_slot_caps`, both of the
     `slot_profile` (`default` or `dense`); None builds no slot tables
     (every submanifold conv on the dense 27-tap path, K6), and a per-level
-    sequence takes any form `ops.hierarchy.build_hierarchy` takes."""
+    sequence takes any form `ops.hierarchy.build_hierarchy` takes.
+    `child_slot_caps` ("default" or per-transition specs) adds the child
+    slot tables that put the strided convs on their slot form (the JAX
+    `build_hierarchy(child_slot_caps=)`)."""
     coords, _, _, mask, bidx = flatten_points(batch)
     if capacities is None:
         capacities = default_capacities(coords.shape[0], num_levels,
@@ -182,5 +185,6 @@ def build_topology(batch: PointBatch, full_scale: int, num_levels: int,
     grid = voxelize(coords, bidx, mask, full_scale, capacity=capacities[0],
                     presorted=batch.coords_sorted)
     hier = build_hierarchy(grid, num_levels, capacities, slot_caps,
-                           num_batches=batch.batch_size)
+                           num_batches=batch.batch_size,
+                           child_slot_caps=child_slot_caps)
     return grid, hier

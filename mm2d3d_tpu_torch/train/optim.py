@@ -6,7 +6,8 @@ Optimizers {adamw, adam, sgd} are stock `torch.optim`, rmsprop is optax's
 {step, multi_step_lr, cosine_annealing, cyclic, one_cycle, constant} are the
 JAX package's formulas (optax's and the torch-exact OneCycle), evaluated per
 optimizer step and applied through a `LambdaLR`.  One optimizer per model,
-stepped together, as the reference's HybridOptim.
+stepped together, as the reference's HybridOptim.  `accumulate_steps` > 1
+wraps the optimizer in `MultiSteps`, the counterpart of `optax.MultiSteps`.
 """
 
 from __future__ import annotations
@@ -119,6 +120,61 @@ class RMSprop(torch.optim.Optimizer):
                     p.sub_(u, alpha=lr)
 
 
+class MultiSteps:
+    """`optax.MultiSteps(every_k_schedule=k)` around a torch optimizer: each
+    `step()` folds the parameters' gradients into their running mean
+    (optax's `acc + (g - acc) / (n + 1)`, a missing gradient counting as
+    zero), and every k-th applies the inner optimizer, weight decay
+    included, to the mean and starts a new one.  On the other calls the
+    gradients are cleared and the inner step leaves every parameter
+    untouched (torch's optimizers skip a parameter without a gradient).
+    `state_dict` holds the inner optimizer's state, the running mean and
+    the micro-step count, so a run resumed between micro-steps continues
+    bit for bit."""
+
+    def __init__(self, inner: torch.optim.Optimizer, k: int):
+        self.inner = inner
+        self.k = k
+        self.mini_step = 0
+        self.params = [p for g in inner.param_groups for p in g["params"]]
+        self.acc = [torch.zeros_like(p, memory_format=torch.preserve_format)
+                    for p in self.params]
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        n = self.mini_step
+        for p, a in zip(self.params, self.acc):
+            if p.grad is not None:
+                a.add_((p.grad - a) / (n + 1))
+            else:
+                a.sub_(a / (n + 1))
+        self.mini_step = (n + 1) % self.k
+        emit = self.mini_step == 0
+        for p, a in zip(self.params, self.acc):
+            p.grad = a.clone() if emit else None
+            if emit:
+                a.zero_()
+        self.inner.step()
+
+    def state_dict(self):
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step,
+                "acc": [a.clone() for a in self.acc]}
+
+    def load_state_dict(self, state) -> None:
+        self.inner.load_state_dict(state["inner"])
+        self.mini_step = int(state["mini_step"])
+        with torch.no_grad():
+            for a, b in zip(self.acc, state["acc"]):
+                a.copy_(b)
+
+
 def make_optimizer(params: Iterable[torch.nn.Parameter], name: str = "adamw",
                    lr: float = 1e-3,
                    lr_scheduler: Optional[Dict[str, Any]] = None,
@@ -128,9 +184,13 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], name: str = "adamw",
     """-> (optimizer, its LambdaLR); step both once per train step.
 
     The update rules equal optax's: AdamW decays from the pre-update
-    weights, Adam's eps is outside the root, rmsprop's inside."""
-    if accumulate_steps > 1:
-        raise NotImplementedError("gradient accumulation is not ported yet")
+    weights, Adam's eps is outside the root, rmsprop's inside.  With
+    `accumulate_steps` k > 1 the optimizer is a `MultiSteps` and the
+    schedule's rate at micro-step m is the rate of update m // k, so both
+    are still stepped once per train step."""
+    if not isinstance(accumulate_steps, int) or accumulate_steps < 1:
+        raise ValueError(f"accumulate_steps must be an integer >= 1, got "
+                         f"{accumulate_steps!r}")
     schedule = make_schedule(lr_scheduler, lr)
     # every group starts at lr 1, so the LambdaLR's factor is the rate itself
     if name == "adamw":
@@ -151,5 +211,8 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], name: str = "adamw",
                       momentum=kwargs.get("momentum", 0.0))
     else:
         raise ValueError(f"unknown optimizer {name!r}")
-    rate = schedule if callable(schedule) else (lambda step: schedule)
-    return opt, LambdaLR(opt, rate)
+    k = accumulate_steps
+    rate = (lambda step: schedule(step // k)) if callable(schedule) else (
+        lambda step: schedule)
+    sched = LambdaLR(opt, rate)
+    return (opt if k == 1 else MultiSteps(opt, k)), sched

@@ -30,7 +30,9 @@ from torch import nn
 from ..models.convert import from_flax
 from ..models.net2d import Net2DSeg
 from ..models.resnet2d import BatchNorm2d
-from ..models.sparse_unet import DownConv, MaskedBatchNorm, Net3DSeg, SubmConv, UpConv
+from ..models.sparse_unet import (
+    DownConv, MaskedBatchNorm, Net3DSeg, ResidualBlock, SubmConv, UpConv,
+)
 from .batch import PointBatch, build_topology, flatten_points, prepare_device_batch
 from .losses import IGNORE_INDEX, kl_consistency, weighted_cross_entropy
 from .metrics import confusion_matrix_update
@@ -65,9 +67,19 @@ class EvalMetrics:
         return cls(cm_2d=z(), cm_3d=z(), cm_avg=z())
 
 
+def slot_overflow(hier) -> torch.Tensor:
+    """Hits a hierarchy's slot tables dropped: the submanifold tiers' and
+    the child slots' (0 = healthy; a drop voids the convolutions)."""
+    return sum(t.float() for t in
+               [lvl.slot_overflow for lvl in hier.levels]
+               + [tr.cslot_overflow for tr in hier.transitions]
+               if t is not None)
+
+
 def _init_(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded init: He-normal sparse kernels (fan-in = taps * Cin), LeCun-
-    normal dense kernels, zero biases, identity batch norms."""
+    """Seeded init: He-normal sparse kernels (fan-in = taps * Cin) and
+    residual shortcuts, LeCun-normal dense kernels, zero biases, identity
+    batch norms (the frozen ones too)."""
 
     def normal_(p: torch.Tensor, fan_in: int, gain: float) -> None:
         p.copy_(torch.randn(p.shape, generator=generator) * math.sqrt(gain / fan_in))
@@ -85,6 +97,13 @@ def _init_(module: nn.Module, generator: torch.Generator) -> None:
             m.weight.fill_(1.0)
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+        elif isinstance(m, ResidualBlock) and m.nin_kernel is not None:
+            normal_(m.nin_kernel, m.nin_kernel.shape[0], 2.0)
+        if getattr(m, "bn_scale", None) is not None:  # a frozen BatchNorm
+            m.bn_scale.fill_(1.0)
+            m.bn_bias.zero_()
+            m.bn_mean.zero_()
+            m.bn_var.fill_(1.0)
         if getattr(m, "bias", None) is not None:
             m.bias.zero_()
 
@@ -100,13 +119,19 @@ class MM2D3DTask:
     `Net2DSeg(..., fused_head=True)`, the fused head through K5).
     `slot_profile` is the slot-cap plan of every topology the task builds:
     "default" (32-beam nuScenes-style scans) or "dense" (64-beam
-    KITTI-family scans; `train.batch.default_slot_caps`)."""
+    KITTI-family scans; `train.batch.default_slot_caps`).
+    `residual_blocks` and `frozen_batch_norm` shape the default networks,
+    as in JAX; an optimizer config's `accumulate_steps` k > 1 averages the
+    gradients of k train steps per update (`optim.MultiSteps`), while the
+    running statistics and `step` (and with it the dropout stream) move on
+    every train step."""
 
     def __init__(self, num_classes: int, class_weights=None,
                  loss_composer=None, lambda_xm_src: float = 1.0,
                  lambda_xm_trg: float = 0.1,
                  full_scale: int = 4096, num_planes: int = 7, m: int = 16,
-                 block_reps: int = 1, in_channels_3d: int = 3,
+                 block_reps: int = 1, residual_blocks: bool = False,
+                 in_channels_3d: int = 3, frozen_batch_norm: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  optimizer_2d: Optional[Dict[str, Any]] = None,
                  optimizer_3d: Optional[Dict[str, Any]] = None,
@@ -125,11 +150,13 @@ class MM2D3DTask:
             None if class_weights is None
             else torch.tensor(class_weights, dtype=torch.float32, device=self.device)
         )
-        self.model2d = (Net2DSeg(num_classes, compute_dtype)
+        self.model2d = (Net2DSeg(num_classes, compute_dtype,
+                                 frozen_batch_norm=frozen_batch_norm)
                         if model2d is None else model2d)
         self.model3d = (Net3DSeg(num_classes, in_channels=in_channels_3d, m=m,
                                  block_reps=block_reps, num_planes=num_planes,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype,
+                                 residual_blocks=residual_blocks)
                         if model3d is None else model3d)
         for net in (self.model2d, self.model3d):
             net.eval()
@@ -313,9 +340,7 @@ class MM2D3DTask:
             for h in hiers for lvl in h.levels) + zero
         # hits dropped by the slot tables (void the gradients); 0 = healthy
         logs["train/nbr_slot_overflow"] = sum(
-            lvl.slot_overflow.float()
-            for h in hiers for lvl in h.levels
-            if lvl.slot_overflow is not None) + zero
+            slot_overflow(h) for h in hiers) + zero
         if src.n_dropped is not None:
             logs["train/points_dropped"] = (
                 src.n_dropped.sum() + trg.n_dropped.sum()).float()
@@ -344,9 +369,7 @@ class MM2D3DTask:
             "loss_segmentation": self._seg_loss(flat2, labels, mask),
             "loss_segmentation_3d": self._seg_loss(flat3, labels, mask),
             "valid_weight": self.seg_loss_weight(labels, mask),
-            "nbr_slot_overflow": sum(
-                lvl.slot_overflow.float() for lvl in hier.levels
-                if lvl.slot_overflow is not None
-            ) + torch.zeros((), device=self.device),
+            "nbr_slot_overflow": slot_overflow(hier)
+            + torch.zeros((), device=self.device),
         }
         return new, logs

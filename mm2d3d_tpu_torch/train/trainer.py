@@ -2,15 +2,20 @@
 fit / validate / test loop, checkpoints and resume.
 
 - per-epoch loop over paired source/target batches (max_size_cycle), the
-  host-to-device copies a few pairs ahead in a background thread;
+  host-to-device copies a few pairs ahead in a background thread; with
+  ``host_topology`` both batches' topologies are built on the CPU
+  (`data.host_topology`, C++) in a thread pool a few pairs ahead and travel
+  with the batches, so the train step builds none on the device (eval
+  still does, as in JAX);
 - validation every ``check_val_every_n_epoch`` on the target val and test
   loaders, with per-class IoUs for 2D, 3D and the ensemble;
 - ``last``, ``best_2d`` (best ``val/target/iou``) and ``best_3d`` (best
   ``val/target/iou_3d``) checkpoints, each a `torch.save` file with a
   ``.meta.json`` beside it (epoch, step, best IoUs, results);
-- resume from ``last``: weights, running statistics, both optimizers and
-  their schedules, `task.step` and the dropout generator, so the resumed
-  run continues as the uninterrupted one would.
+- resume from ``last``: weights, running statistics, both optimizers (with
+  their gradient accumulators, `optim.MultiSteps`) and their schedules,
+  `task.step` and the dropout generator, so the resumed run continues as
+  the uninterrupted one would, between two micro-steps too.
 
 The task holds its state in its modules and optimizers
 (`train.step.MM2D3DTask`); the dropout generator is this trainer's, on the
@@ -28,7 +33,8 @@ from typing import Dict, Optional
 
 import torch
 
-from ..data.loader import max_size_cycle, prefetched
+from ..data import host_topology as HT
+from ..data.loader import max_size_cycle, prefetch_topology_pairs, prefetched
 from ..utils.logging import rank_zero
 from .batch import PointBatch
 from .metrics import iou_per_class
@@ -120,6 +126,7 @@ class Trainer:
         strict_eval_points: bool = False,
         strict_eval_overflow: bool = False,
         prefetch_batches: int = 2,  # host-to-device pairs in flight (0: none)
+        host_topology: bool = False,  # train topologies built on the CPU
     ):
         self.task = task
         self.source_loader = source_loader
@@ -142,6 +149,11 @@ class Trainer:
         self.strict_eval_points = strict_eval_points
         self.strict_eval_overflow = strict_eval_overflow
         self.prefetch_batches = prefetch_batches
+        self.host_topology = host_topology
+        if host_topology:
+            from .. import native
+
+            native.lib()  # builds or loads the host library, or raises
         self._rank0 = rank_zero()
         self.generator = torch.Generator(device=task.device).manual_seed(seed)
         self.global_step = 0
@@ -184,6 +196,13 @@ class Trainer:
             if isinstance(getattr(batch, f.name), torch.Tensor)
         })
 
+    def _item_to_device(self, item):
+        """(src, trg[, topo_src, topo_trg]) on the task's device."""
+        src, trg, *topos = item
+        dev = self.task.device
+        return (self._to_device(src), self._to_device(trg),
+                *(HT.to_device(t, dev) for t in topos))
+
     # -- train ---------------------------------------------------------------
 
     def fit(self, resume: bool = False) -> MM2D3DTask:
@@ -197,14 +216,17 @@ class Trainer:
             self.target_loader.set_epoch(epoch)
             t_epoch = time.time()
             n = 0
-            items = ((self._to_device(s), self._to_device(t))
-                     for s, t in max_size_cycle(self.source_loader,
-                                                self.target_loader))
+            pairs = max_size_cycle(self.source_loader, self.target_loader)
+            if self.host_topology:
+                task = self.task
+                pairs = prefetch_topology_pairs(
+                    pairs, task.full_scale, task.num_planes, task.slot_profile)
+            items = (self._item_to_device(item) for item in pairs)
             if self.prefetch_batches:
                 items = prefetched(items, self.prefetch_batches)
             try:
-                for src, trg in items:
-                    logs = self.task.train_step(src, trg, self.generator)
+                for src, trg, *topos in items:
+                    logs = self.task.train_step(src, trg, self.generator, *topos)
                     self.global_step += 1
                     n += 1
                     # the previous step's scalars, read while this one runs
@@ -219,6 +241,7 @@ class Trainer:
                         break
             finally:
                 items.close()  # stops the prefetch thread now, not at collection
+                pairs.close()  # and the topology pool
             if pending_logs is not None:
                 # flushed even without a logger: the overflow monitors warn
                 self._flush_train_logs(*pending_logs)

@@ -9,6 +9,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 
@@ -51,3 +52,14 @@ def near_tie(logits: np.ndarray, gap: float = 1e-3) -> np.ndarray:
     argmax may legitimately differ between two summation orders."""
     top2 = np.sort(logits, axis=-1)[..., -2:]
     return (top2[..., 1] - top2[..., 0]) < gap
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads for a module's tests: the test workers share the
+    machine's cores, and torch's default of one thread per core in each of
+    them oversubscribes the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)

@@ -7,7 +7,10 @@ swapped), at the voxel capacities and slot plans of a batch-8 topology
 (`default_capacities`, `default_slot_caps`), bf16.  The same for the
 KITTI-family configs' `dense` slot profile: every call of their train step
 (batch 16 x 10,240 points) and every K1 call of their eval forward (batch
-8 x 16,384 points).
+8 x 16,384 points).  And the flagship step's calls with the opt-in forms:
+residual blocks (two submanifold convs per block) and the strided convs
+over child slots (`child_slot_caps="default"`: K = 8 with H = 3 over every
+coarse voxel and H = 5 over the compacted heavy parents).
 
 K1's plan must cover each band exactly once, give the card's 132 SMs a
 block each wherever the voxels and channels allow, and size its scratch;
@@ -48,13 +51,18 @@ def _tiers(l, caps=CAPS, specs=SPECS):
     return [("tier1", v, h_lo), ("heavy", min(vh, v), h_max - h_lo)]
 
 
-def _calls(caps=CAPS, specs=SPECS):
-    """{name: (K, V, H, Ci, Co)} of the K1 and K2 calls of one train step."""
+def _calls(caps=CAPS, specs=SPECS, residual=False, child_slots=False):
+    """{name: (K, V, H, Ci, Co)} of the K1 and K2 calls of one train step;
+    `residual`: residual blocks; `child_slots`: the strided convs over
+    the default child slots."""
     k1, k2 = {}, {}
     subm = [("input_conv", 0, 3, M)]
     subm += [(f"enc_l{l}", l, M * (l + 1), M * (l + 1)) for l in range(LEVELS)]
     subm += [(f"dec_l{l}_concat", l, 2 * M * (l + 1), M * (l + 1))
              for l in range(LEVELS - 1)]
+    if residual:  # each block's second conv, cout -> cout
+        subm += [(f"{b}_l{l}_conv2", l, M * (l + 1), M * (l + 1))
+                 for b, n in (("enc", LEVELS), ("dec", LEVELS - 1)) for l in range(n)]
     for name, l, ci, co in subm:
         for tier, v, h in _tiers(l, caps, specs):
             k1[f"{name}_{tier}_fwd"] = (27, v, h, ci, co)
@@ -68,6 +76,13 @@ def _calls(caps=CAPS, specs=SPECS):
         k1[f"up_l{l + 1}_adjoint"] = (8, v, 1, c, c1)
         k2[f"down_l{l}"] = (8, v, 1, c, c1)
         k2[f"up_l{l + 1}"] = (8, v, 1, c1, c)
+        if child_slots:  # the down conv and the up conv's input gradient
+            vc = caps[l + 1]
+            for tier, vt, h in (("tier1", vc, 3), ("heavy", min(max(256, vc // 4), vc), 5)):
+                k1[f"down_l{l}_{tier}_fwd"] = (8, vt, h, c, c1)
+                k1[f"up_l{l + 1}_{tier}_adjoint"] = (8, vt, h, c, c1)
+                k2[f"down_l{l}_{tier}"] = (8, vt, h, c, c1)
+            del k1[f"down_l{l}_fwd"], k1[f"up_l{l + 1}_adjoint"], k2[f"down_l{l}"]
     return k1, k2
 
 
@@ -87,6 +102,9 @@ ALL_K1 = {**K1_CALLS, **{f"kitti_train:{n}": c for n, c in K1_KITTI.items()},
           **{f"kitti_eval:{n}": c for n, c in K1_KITTI_EVAL.items()
              if n.endswith("_fwd")}}
 ALL_K2 = {**K2_CALLS, **{f"kitti_train:{n}": c for n, c in K2_KITTI.items()}}
+K1_OPTIN, K2_OPTIN = _calls(residual=True, child_slots=True)
+ALL_K1.update({f"residual_child_slots:{n}": c for n, c in K1_OPTIN.items()})
+ALL_K2.update({f"residual_child_slots:{n}": c for n, c in K2_OPTIN.items()})
 
 
 def test_the_flagship_step_has_these_calls():
@@ -99,6 +117,25 @@ def test_the_flagship_step_has_these_calls():
     assert K1_CALLS["dec_l5_concat_heavy_fwd"] == (27, 1024, 18, 192, 96)
     assert K1_CALLS["input_conv_tier1_adjoint"] == (27, 65536, 3, 16, 3)
     assert K1_CALLS["up_l5_fwd"] == (8, 8192, 1, 96, 80)  # L5 -> L4
+
+
+def test_the_residual_child_slot_step_has_these_calls():
+    """Per step: 13 more submanifold convs (the blocks' second), and each
+    strided conv's single K1 / K2 call over (parent, off_id) in the down
+    conv's forward and weight gradient and the up conv's input gradient
+    replaced by two over the child slots."""
+    tiers = sum(len(_tiers(l)) for l in range(LEVELS)) + sum(
+        len(_tiers(l)) for l in range(LEVELS - 1))  # of the 13 second convs
+    assert tiers == 36
+    assert len(K1_OPTIN) == len(K1_CALLS) + 2 * tiers + 2 * 6
+    assert len(K2_OPTIN) == len(K2_CALLS) + tiers + 6
+    v1 = CAPS[1]
+    assert K1_OPTIN["down_l0_tier1_fwd"] == (8, v1, 3, 16, 32)
+    assert K1_OPTIN["down_l0_heavy_fwd"] == (8, v1 // 4, 5, 16, 32)
+    assert K1_OPTIN["up_l1_heavy_adjoint"] == (8, v1 // 4, 5, 16, 32)
+    assert K2_OPTIN["down_l5_heavy"] == (8, CAPS[6] // 4, 5, 96, 112)  # L6: 2,048 rows
+    assert K1_OPTIN["dec_l0_conv2_tier1_fwd"] == (27, CAPS[0], 3, 16, 16)
+    assert K1_OPTIN["up_l1_fwd"] == K1_CALLS["up_l1_fwd"]  # still H = 1
 
 
 def test_the_kitti_step_and_eval_have_these_calls():
@@ -251,6 +288,9 @@ EDGES = {
     "duplicates_and_tap13": (27, 160, 6, 32, 8, True, True, True, 0),
     "rows_all_misses": (27, 200, 3, 16, 16, False, False, False, 128),
     "strided_k8": (8, 333, 1, 48, 64, False, False, False, 0),
+    "child_slots_k8_h3": (8, 301, 3, 16, 32, False, False, False, 0),
+    "child_slots_k8_h5": (8, 257, 5, 32, 48, False, False, False, 64),
+    "child_slots_k8_h3_duplicates": (8, 190, 3, 48, 64, False, True, False, 0),
     "input_conv_adjoint_co3": (27, 150, 3, 16, 3, True, False, False, 0),
     "ci8": (27, 140, 5, 8, 16, True, True, False, 0),
 }

@@ -4,9 +4,11 @@ ragged voxel counts, more than 128 output channels, Ci = 3 and 224, odd
 image sizes and crops, empty inputs, NaN, and the inputs the kernels
 refuse, and the shapes the KITTI-family configs give K1, K2 (the dense
 slot profile's level-0 tiers) and K4 (their stem outputs); the autograd Functions around them (the sparse-conv adjoints, the
-dense form's included, the stem pool's and the fused head's backward) on
-the card against the same Functions on the CPU; and the 2D branch's
-train-mode gradients on the card against the CPU's.
+dense form's and the strided convs' child-slot form (K = 8) included, the
+stem pool's and the fused head's backward) on
+the card against the same Functions on the CPU; the 2D branch's
+train-mode gradients on the card against the CPU's; and host-built
+topologies copied to the card against the card's own build.
 
 Needs a CUDA device (and nvcc to build the kernels); skips without one.  On
 a machine with a card and no JAX, run it without the repo's conftest.py
@@ -230,9 +232,10 @@ def test_bandmm_dw_matches_plain_version_and_repeats(dev, case, dtype):
     assert err <= 1e-4 * max(float(ref.abs().max()), 1e-30), err
 
 
-def _hierarchies(dev):
+def _hierarchies(dev, child_slot_caps=None):
     """A 3-level hierarchy (3-tier L0, 2-tier L1, 3-tier L2) built on the
-    card and on the CPU from the same points."""
+    card and on the CPU from the same points (with child slots where
+    `child_slot_caps` asks)."""
     r = np.random.RandomState(11)
     n, fs = 2000, 64
     coords = torch.from_numpy(r.randint(0, fs, size=(n, 3)).astype(np.int32))
@@ -243,11 +246,13 @@ def _hierarchies(dev):
     out = []
     for d in (dev, torch.device("cpu")):
         grid = voxelize(coords.to(d), batch.to(d), valid.to(d), fs, capacity=caps[0])
-        out.append(H.build_hierarchy(grid, 3, caps, slot_caps, num_batches=2))
+        out.append(H.build_hierarchy(grid, 3, caps, slot_caps, num_batches=2,
+                                     child_slot_caps=child_slot_caps))
     return out
 
 
-CONV_FORMS = ["subm_3tier", "subm_2tier", "subm_1tier", "subm_dense", "down", "up"]
+CONV_FORMS = ["subm_3tier", "subm_2tier", "subm_1tier", "subm_dense", "down", "up",
+              "down_slots", "up_slots"]
 NO_SLOTS = dict(slot_src=None, slot_tap=None, slot_overflow=None, slot_idx=None,
                 slot_src2=None, slot_tap2=None, slot_idxm=None, slot_invm=None,
                 slot_srcm=None, slot_tapm=None)
@@ -256,7 +261,7 @@ NO_SLOTS = dict(slot_src=None, slot_tap=None, slot_overflow=None, slot_idx=None,
 @pytest.mark.parametrize("form", CONV_FORMS)
 def test_conv_adjoints_on_card_match_cpu(dev, form):
     torch.backends.cuda.matmul.allow_tf32 = False
-    hg, hc = _hierarchies(dev)
+    hg, hc = _hierarchies(dev, "default" if form.endswith("_slots") else None)
     r = np.random.RandomState(CONV_FORMS.index(form))
     cin, cout = 12, 20
     if form.startswith("subm"):
@@ -277,8 +282,9 @@ def test_conv_adjoints_on_card_match_cpu(dev, form):
     else:
         tg, tc = hg.transitions[0], hc.transitions[0]
         fine, coarse = hc.levels[0].capacity, hc.levels[1].capacity
-        op = S.down_conv2 if form == "down" else S.up_conv2
-        rows_in, rows_out = (fine, coarse) if form == "down" else (coarse, fine)
+        assert (tc.cslot_src is not None) == form.endswith("_slots")
+        op = S.down_conv2 if form.startswith("down") else S.up_conv2
+        rows_in, rows_out = (fine, coarse) if form.startswith("down") else (coarse, fine)
         fn = {dev.type: lambda x, w: op(x, tg, w, torch.float32),
               "cpu": lambda x, w: op(x, tc, w, torch.float32)}
         k = 8
@@ -517,3 +523,29 @@ def test_bf16_train_step_reproducible(dev):
     task.train_step(src, trg, gen)  # the optimizers hold moments from here on
     n, differ = check_reproducible(task, src, trg, gen)
     assert n > 1000 and not differ, differ[:10]
+
+
+@pytest.mark.parametrize("profile", ["default", "dense"])
+def test_host_topology_on_card_equals_the_cards_build(dev, profile):
+    """`data.host_topology` built on the CPU and copied to the card
+    (`to_device`: two packed copies) equals `build_topology` on the card,
+    table by table, child slots included."""
+    from mm2d3d_tpu_torch.data.host_topology import to_device, topology_for_batch
+    from mm2d3d_tpu_torch.data.synthetic import make_batch
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    batch = make_batch(np.random.RandomState(4), batch_size=2, height=32, width=48,
+                       n_points=2048, full_scale=512)
+    kw = dict(slot_profile=profile, child_slot_caps="default")
+    host = to_device(topology_for_batch(batch, 512, 4, **kw), dev)
+    card = build_topology(batch.to(dev), 512, 4, **kw)
+    n = 0
+    for a, b in [(host[0], card[0])] + list(zip(host[1].levels, card[1].levels)) + \
+            list(zip(host[1].transitions, card[1].transitions)):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            assert (x is None) == (y is None), f.name
+            if isinstance(x, torch.Tensor):
+                assert x.device == y.device and torch.equal(x, y), f.name
+                n += 1
+    assert n > 50

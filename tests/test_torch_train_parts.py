@@ -297,8 +297,11 @@ def test_optimizer_steps_match_optax(rng, name):
 
 
 def test_gradient_accumulation_is_refused():
-    with pytest.raises(NotImplementedError):
-        O.make_optimizer([torch.nn.Parameter(torch.zeros(1))], accumulate_steps=2)
+    """Accumulation itself is ported (tests/test_torch_train_options.py); a
+    count that is not an integer >= 1 is refused."""
+    for k in (0, 1.5):
+        with pytest.raises(ValueError):
+            O.make_optimizer([torch.nn.Parameter(torch.zeros(1))], accumulate_steps=k)
 
 
 def test_eval_train_eval_in_one_process():

@@ -453,8 +453,7 @@ def test_cli_worker_pools_then_stop_worker_server(workspace):
 @pytest.mark.parametrize("override,error", [
     ("run.distributed=true", NotImplementedError),
     ("logging.wandb.project=x", NotImplementedError),
-    ("models.net2d.frozen_batch_norm=true", NotImplementedError),
-    ("models.net3d.backbone_3d.residual_blocks=true", NotImplementedError),
+    ("logging.mlflow.experiment=x", NotImplementedError),
 ])
 def test_cli_refuses_what_is_not_ported(workspace, override, error):
     from mm2d3d_tpu_torch.run import main
