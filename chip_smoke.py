@@ -32,7 +32,15 @@ K2 with K = 8) in the eval forward and the train step, their kernel calls
 against the plain versions, card against CPU in fp32; and the CLI over
 configs/config.yaml with frozen batch norm, residual blocks and gradient
 accumulation, 4 steps (2 updates), then a run resumed between two
-micro-steps.  Prints, in its last lines, the card (nvidia-smi name and power
+micro-steps.  Phase 13 drives data parallelism (`parallel/mesh.py`): the
+bf16 train step in an NCCL group of one, bit-identical to the plain step;
+two ranks sharing the card over gloo (`tools/ddp_check.py`), one fp32 step
+held against the same two ranks on the CPU and two bf16 steps with the
+ranks bit-identical; and configs/config.yaml through the CLI under torchrun
+with two ranks, K1-K4's launches per rank held to the hierarchies'
+prediction, the resumed ranks bit-equal to the checkpoint and the
+validation's confusion matrices equal to one process's.  Prints, in its
+last lines, the card (nvidia-smi name and power
 limit), one JSON line of kernel results, and one JSON line
 {"ok": true, "device": {...}}.  Any failed phase raises, and
 the script exits non-zero without the final line; it also refuses to run
@@ -53,7 +61,8 @@ import time
 import torch
 import torch.nn.functional as F
 
-from mm2d3d_tpu_torch.tools.kernel_cases import BATCH, cuda_ms, flagship_batch
+from mm2d3d_tpu_torch.tools.kernel_cases import (
+    BATCH, cuda_ms, expected_launches, expected_train_launches, flagship_batch)
 
 K1_REL_TOL = 1e-4  # max |kernel - plain| <= 1e-4 * max |plain| (K1, K2, K5, K6)
 LOGIT_REL_TOL = 1e-3  # card vs CPU, fp32 forward and train step
@@ -405,25 +414,6 @@ def check_k5(res: Results, dev) -> None:
 # phase 4: the slice, bf16, batch 8, through the counted kernels
 # --------------------------------------------------------------------------
 
-def tiers(level) -> int:
-    return 3 if level.slot_srcm is not None else (2 if level.slot_src2 is not None else 1)
-
-
-def expected_launches(hier, residual: bool = False) -> dict:
-    """Kernel launches of one forward, from the hierarchy: K3 at every level
-    but the coarsest, K4 once per encoder, K1 once per tier of every
-    submanifold conv (input conv, encoder and decoder blocks, two per
-    block with `residual`) plus once per strided conv, and once more for
-    a down conv over child slots (its heavy tier)."""
-    lv = hier.levels
-    n = len(lv)
-    blocks = sum(tiers(l) for l in lv) + sum(tiers(l) for l in lv[:-1])
-    k1 = tiers(lv[0]) + (2 if residual else 1) * blocks
-    k1 += sum(3 if t.cslot_src is not None else 2 for t in hier.transitions)
-    return {"propagate": n - 1, "maxpool": 2, "bandmm": k1, "bandmm_dw": 0,
-            "head2d": 0, "tapsum": 0}
-
-
 def run_slice(dev):
     from mm2d3d_tpu_torch.flagship import flagship_task
     from mm2d3d_tpu_torch.ops import kernels
@@ -616,26 +606,6 @@ def compare_card_cpu(dev, optin: bool = False, child_slots: bool = False) -> Non
 TRAIN_STEPS = 3  # counted steps
 TRAIN_TIMING = (3, 5)  # samples x steps
 TRAJECTORY_STEPS = 12
-
-
-def expected_train_launches(hiers, residual: bool = False,
-                            host_built: bool = False) -> dict:
-    """Kernel launches of one train step, from the two domains' hierarchies:
-    per domain, K1 twice per eval-forward launch (forward and input
-    gradient), K2 once per eval-forward K1 launch (weight gradient), K3 per
-    topology (none for topologies built on the host) and K4 per encoder as
-    in the forward (the pool's backward is PyTorch's).  Over child slots
-    the count holds too: the down conv's two K1 and two K2 calls, the up
-    conv's input gradient's two K1 calls."""
-    out = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0, "head2d": 0,
-           "tapsum": 0}
-    for hier in hiers:
-        ev = expected_launches(hier, residual)
-        out["bandmm"] += 2 * ev["bandmm"]
-        out["bandmm_dw"] += ev["bandmm"]
-        out["propagate"] += 0 if host_built else ev["propagate"]
-        out["maxpool"] += ev["maxpool"]
-    return out
 
 
 def check_train_logs(logs) -> None:
@@ -1064,6 +1034,17 @@ def assert_same_state(a: dict, b: dict, what: str) -> int:
     return len(dict(tensor_leaves(a)))
 
 
+def cli_overrides(root: str, pre: str, cache: str, out: str) -> list:
+    """Phase 10's overrides of configs/config.yaml: the synthetic tree's
+    paths, `out` for the run, 1 epoch, 3 train and 2 eval batches, the
+    loader workers."""
+    return [f"dataset.{d}.{k}={v}" for d in ("source", "target")
+            for k, v in (("preprocess_dir", pre), ("nuscenes_dir", root),
+                         ("image_cache_dir", cache))] + [
+        f"train.out_dir={out}", "run.max_epochs=1", "run.limit_train_batches=3",
+        "run.limit_val_batches=2", f"train.num_workers={CLI_WORKERS}"]
+
+
 def run_cli(dev, extra=(), what="phase 10"):
     """configs/config.yaml as shipped (batch 16 per domain, n_points 8192,
     m=16, 7 planes, full_scale 4096, bf16, AdamW + OneCycle) through
@@ -1083,12 +1064,7 @@ def run_cli(dev, extra=(), what="phase 10"):
         t0 = time.perf_counter()
         pre, cache = write_nuscenes_tree(root)
         out = os.path.join(root, "run")
-        overrides = [f"dataset.{d}.{k}={v}" for d in ("source", "target")
-                     for k, v in (("preprocess_dir", pre), ("nuscenes_dir", root),
-                                  ("image_cache_dir", cache))]
-        overrides += [f"train.out_dir={out}", "run.max_epochs=1",
-                      "run.limit_train_batches=3", "run.limit_val_batches=2",
-                      f"train.num_workers={CLI_WORKERS}", *extra]
+        overrides = cli_overrides(root, pre, cache, out) + list(extra)
         log(f"synthetic nuScenes tree: {sum(CLI_SPLITS.values())} scans "
             f"{CLI_SPLITS}, {CLI_FRAMES} cached frames, "
             f"{time.perf_counter() - t0:.1f} s")
@@ -1937,6 +1913,314 @@ def run_options(res: Results, dev, cli_ms: float, kitti_ms: dict) -> dict:
             "options": options, "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# phase 13: data parallelism, one process per rank (parallel/mesh.py)
+# --------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_TIMEOUT_S = 300  # each launch of the ranks
+DP_SEEDS = (20, 21)  # 13b's fp32 pair: phase 9's seeds (phase 7's hold a ReLU kink)
+DP_CLI_BATCH = 16  # 13c's global batch per domain, config.yaml's
+
+
+def check_nccl_world_of_one(dev) -> int:
+    """13a: the bf16 train step at batch 8 per domain in an NCCL group of
+    one, in this process, against the plain step from the same state: every
+    tensor bit-identical.  -> the tensors compared."""
+    import torch.distributed as dist
+
+    from mm2d3d_tpu_torch.flagship import flagship_task
+    from mm2d3d_tpu_torch.parallel import mesh
+    from mm2d3d_tpu_torch.tools.ddp_check import free_port
+    from mm2d3d_tpu_torch.tools.train_repro import (
+        differing, restore, snapshot, tensor_leaves)
+
+    task = flagship_task(device=dev)
+    task.init_params(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src, trg = flagship_batch(10, BATCH, dev), flagship_batch(11, BATCH, dev)
+    check_train_logs(task.train_step(src, trg, gen))  # optimizer moments
+    start = snapshot(task, gen)
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    outs = []
+    try:
+        for group in (False, True):
+            restore(task, gen, start)
+            if group:
+                if mesh.init_process_group("cuda") != dev or dist.get_backend() != "nccl":
+                    raise AssertionError(f"backend {dist.get_backend()}, not NCCL on {dev}")
+                task.group = dist.group.WORLD
+            logs = task.train_step(src, trg, gen)
+            torch.cuda.synchronize()
+            check_train_logs(logs)
+            outs.append({**snapshot(task, gen),
+                         "logs": {k: v.detach().clone() for k, v in logs.items()}})
+    finally:
+        task.group = None
+        mesh.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    differ = differing(*outs)
+    n = len(dict(tensor_leaves(outs[0])))
+    if differ:
+        raise AssertionError(f"NCCL world of one vs the plain step: {len(differ)} of {n} "
+                             f"tensors differ: {differ[:10]}")
+    log(f"13a: bf16 train step batch {BATCH} per domain, NCCL group of one vs no group: "
+        f"all {n} tensors (weights, running statistics, optimizer moments, dropout "
+        "generator, logs) bit-identical; group destroyed")
+    return n
+
+
+def check_two_ranks(dev) -> dict:
+    """13b: two ranks sharing the card over gloo (`tools/ddp_check.py step`).
+    One fp32 step at phase 7's size (COMPARE_BATCH scans per domain over
+    the two ranks, dropout off), held against the same two ranks on the
+    CPU with phase 7's tolerances; then two bf16 steps at batch 4 per rank
+    per domain, the ranks bit-identical to each other."""
+    import tempfile
+
+    from mm2d3d_tpu_torch.flagship import flagship_task
+    from mm2d3d_tpu_torch.tools import ddp_check
+
+    def ranks_identical(ranks, what):
+        r0 = ranks[0]
+        for r in ranks[1:]:
+            differ = sorted(k for k in set(r0) | set(r)
+                            if k not in r or k not in r0 or not (r[k] == r0[k]).all())
+            if differ:
+                raise AssertionError(f"{what}: ranks differ at {differ[:10]}")
+        return len(r0)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        task = flagship_task(compute_dtype=torch.float32, device="cpu")
+        task.init_params(torch.Generator().manual_seed(3))
+        src, trg = (flagship_batch(s, COMPARE_BATCH, "cpu") for s in DP_SEEDS)
+        inputs = os.path.join(root, "fp32.npz")
+        ddp_check.write_inputs(inputs, task.model2d.state_dict(), task.model3d.state_dict(),
+                               [src, trg], {"task": {"compute_dtype": "float32"},
+                                            "pairs": [[0, 1]], "dropout": False,
+                                            "seed": 0})
+        def run(d):
+            t0 = time.perf_counter()
+            ddp_check.launch(["step", inputs, os.path.join(root, d), "--device", d],
+                             nproc=DP_RANKS, timeout_s=DP_TIMEOUT_S,
+                             env={"OMP_NUM_THREADS": "3"})
+            return time.perf_counter() - t0
+
+        # the card's ranks and the CPU's at once: both launches wait mostly
+        # on start-up and the host
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(2) as pool:
+            seconds = dict(zip(("cuda", "cpu"), pool.map(run, ("cuda", "cpu"))))
+        ranks = {}
+        for d in ("cuda", "cpu"):
+            ranks[d] = ddp_check.read_ranks(os.path.join(root, d, "rank*.npz"))
+            n = ranks_identical(ranks[d], f"fp32 {d}")
+            log(f"13b: fp32 step, {COMPARE_BATCH} scans per domain over {DP_RANKS} ranks "
+                f"on the {d} (gloo): ranks bit-identical ({n} arrays), "
+                f"{seconds[d]:.1f} s with start-up (both launches at once)")
+        gpu, cpu = ranks["cuda"][0], ranks["cpu"][0]
+        for k in sorted(k for k in cpu if k.startswith("log0/")):
+            a, b = float(gpu[k]), float(cpu[k])
+            if abs(a - b) > LOGIT_REL_TOL * abs(b):
+                raise AssertionError(f"13b {k}: card {a} vs CPU {b}")
+        worst = []
+        for branch in ("model2d", "model3d"):
+            keys = [k for k in cpu if k.startswith(f"grad/{branch}/")]
+            top = max(float(abs(cpu[k]).max()) for k in keys)
+            worst += [(float(abs(gpu[k] - cpu[k]).max()) / top, k) for k in keys]
+        worst.sort(reverse=True)
+        log("13b: card vs CPU, both over 2 ranks: every log within 1e-3 relative; worst "
+            "averaged gradients (/ max|CPU gradient of the branch|): "
+            + "; ".join(f"{k[5:]} {e:.2e}" for e, k in worst[:3]))
+        if worst[0][0] > LOGIT_REL_TOL:
+            raise AssertionError(f"13b {worst[0][1]}: {worst[0][0]} > {LOGIT_REL_TOL}")
+        out["fp32_worst_grad"] = worst[0][0]
+
+        task = flagship_task(device="cpu")
+        task.init_params(torch.Generator().manual_seed(0))
+        inputs = os.path.join(root, "bf16.npz")
+        ddp_check.write_inputs(
+            inputs, task.model2d.state_dict(), task.model3d.state_dict(),
+            [flagship_batch(s, DP_RANKS * 4, "cpu") for s in (10, 11)],
+            {"task": {"compute_dtype": "bfloat16"}, "pairs": [[0, 1], [0, 1]],
+             "dropout": True, "seed": 0})
+        t0 = time.perf_counter()
+        ddp_check.launch(["step", inputs, os.path.join(root, "bf16"), "--device", "cuda"],
+                         nproc=DP_RANKS, timeout_s=DP_TIMEOUT_S)
+        ranks = ddp_check.read_ranks(os.path.join(root, "bf16", "rank*.npz"))
+        n = ranks_identical(ranks, "bf16")
+        losses = [float(ranks[0][f"log{s}/train/loss_total"]) for s in range(2)]
+        for k, v in ranks[0].items():
+            if k.startswith("log") and not math.isfinite(float(v)):
+                raise AssertionError(f"13b bf16 {k}: {float(v)}")
+            if k.endswith(("nbr_slot_overflow", "voxel_overflow_levels")) and float(v):
+                raise AssertionError(f"13b bf16 {k}: {float(v)}")
+        log(f"13b: two bf16 steps at batch 4 per rank per domain, {DP_RANKS} ranks on the "
+            f"card (gloo): ranks bit-identical ({n} arrays), loss_total "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + f", monitors 0; {time.perf_counter() - t0:.1f} s with start-up")
+    return out
+
+
+def run_cli_data_parallel(dev) -> dict:
+    """13c: configs/config.yaml through the CLI under torchrun with two
+    ranks sharing the card (gloo), global batch 16 per domain, over phase
+    10's synthetic tree: fit (3 steps, validation and test on 2 global
+    batches), then `run=test` with resume.  Each rank runs through
+    `tools/ddp_check.py cli`, which keeps the topologies its task builds."""
+    import tempfile
+
+    from mm2d3d_tpu_torch.tools import ddp_check
+
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "config.yaml")
+    with tempfile.TemporaryDirectory() as root:
+        pre, cache = write_nuscenes_tree(root)
+        out = os.path.join(root, "run")
+        argv = ["--config", config, *cli_overrides(root, pre, cache, out),
+                f"run.batch_size={DP_CLI_BATCH}"]
+
+        def launch(name, *extra):
+            t0 = time.perf_counter()
+            ddp_check.launch(["cli", os.path.join(root, name), "--", *argv, *extra],
+                             nproc=DP_RANKS, timeout_s=DP_TIMEOUT_S)
+            ranks = ddp_check.read_ranks(os.path.join(root, name + ".rank*.pt"))
+            if [r["rank"] for r in ranks] != list(range(DP_RANKS)):
+                raise AssertionError(f"13c {name}: rank files {[r['rank'] for r in ranks]}")
+            return ranks, time.perf_counter() - t0
+
+        def expected(r):
+            exp = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0,
+                   "head2d": 0, "tapsum": 0}
+            for t in r["topologies"]:
+                for k, n in t["expected"].items():
+                    exp[k] += n
+            return exp
+
+        def monitor(ranks, kind, field, batches):
+            """A monitor's log as the ranks' tables give it: the mean over
+            the ranks of the sum over the `batches` (indices among this
+            kind's topologies) of each table's count."""
+            return sum(sum([t[field] for t in r["topologies"] if t["kind"] == kind][i]
+                           for i in batches) for r in ranks) / len(ranks)
+
+        def check_monitor(logged, want, what):
+            if abs(logged - want) > 1e-6 * max(1.0, abs(want)):
+                raise AssertionError(f"13c {what}: logged {logged}, the tables' {want}")
+
+        fit, fit_s = launch("fit")
+        launches = []
+        for r in fit:
+            kinds = [t["kind"] for t in r["topologies"]]
+            if r["global_step"] != 3 or len(r["ends"]) != 3 or \
+                    kinds.count("train") != 6 or kinds.count("eval") != 6:
+                raise AssertionError(f"13c rank {r['rank']}: step {r['global_step']}, "
+                                     f"{len(r['ends'])} steps, topologies {kinds}")
+            check_counts(r["launches"], expected(r), f"13c fit rank {r['rank']}")
+            launches.append(r["launches"])
+            if r["state"] != fit[0]["state"] or r["results"] != fit[0]["results"]:
+                raise AssertionError(f"13c: rank {r['rank']} ends unlike rank 0")
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            lines = [json.loads(ln) for ln in f]
+        train = [ln for ln in lines if "train/loss_total" in ln]
+        evals = [ln for ln in lines if "val/target/iou" in ln]
+        if [ln["step"] for ln in train] != [1, 2, 3] or len(evals) != 1:
+            raise AssertionError(f"13c: train log steps {[ln['step'] for ln in train]}, "
+                                 f"{len(evals)} eval lines")
+        # both monitors as the ranks' tables give them (a dropped hit or a
+        # full level counts; the default slot plan is the reference's
+        # calibration, ROADMAP.md Queue 3)
+        dropped = []
+        for s, ln in enumerate(train):
+            if not all(math.isfinite(v) for v in ln.values()):
+                raise AssertionError(f"13c step {ln['step']}: non-finite log")
+            for name, field in (("train/nbr_slot_overflow", "slot_overflow"),
+                                ("train/voxel_overflow_levels", "levels_at_capacity")):
+                check_monitor(ln[name], monitor(fit, "train", field, (2 * s, 2 * s + 1)),
+                              f"step {ln['step']} {name}")
+            dropped.append(ln["train/nbr_slot_overflow"])
+        for stage, batches, logs in (("val/target", (0, 1), evals[0]),
+                                     ("test/target", (2, 3), evals[0]),
+                                     ("test/target", (4, 5), fit[0]["results"])):
+            check_monitor(logs[f"{stage}/nbr_slot_overflow"],
+                          monitor(fit, "eval", "slot_overflow", batches) / 2,
+                          f"{stage} nbr_slot_overflow")
+            dropped.append(logs[f"{stage}/nbr_slot_overflow"])
+        if any(t["levels_at_capacity"] for r in fit for t in r["topologies"]):
+            raise AssertionError("13c: a level at its voxel capacity")
+        ckpts = sorted(os.listdir(os.path.join(out, "ckpts")))
+        if "last.pt" not in ckpts or any(c.endswith(".tmp") for c in ckpts):
+            raise AssertionError(f"13c checkpoints: {ckpts}")
+        saved = torch.load(os.path.join(out, "ckpts", "last.pt"), map_location="cpu",
+                           weights_only=True)
+        if ddp_check.digest(saved) != fit[0]["state"]:
+            raise AssertionError("13c: last.pt differs from the ranks' state")
+
+        # the ranks' validation against one process over the same scans in
+        # the same batches of 8
+        t0 = time.perf_counter()
+        ref = ddp_check.reference_eval(argv, batch_size=DP_CLI_BATCH // DP_RANKS,
+                                       limit=2 * DP_RANKS, device="cuda")
+        if int(ref["cm_2d"].sum()) <= 0:
+            raise AssertionError("13c: the validation counted no point")
+        for k, cm in ref.items():
+            if not torch.equal(fit[0]["evals"][0][k], cm):
+                d = int((fit[0]["evals"][0][k] - cm).abs().sum())
+                raise AssertionError(f"13c val {k}: {d} counts differ from one process")
+        ref_s = time.perf_counter() - t0
+
+        test, test_s = launch("test", "run=test", f"run.batch_size={DP_CLI_BATCH}",
+                              "run.resume=true")
+        for r in test:
+            if r["global_step"] != 3 or r["start_epoch"] != 1 or r["state"] != fit[0]["state"]:
+                raise AssertionError(f"13c resumed rank {r['rank']}: step {r['global_step']}, "
+                                     "state unlike the checkpoint's")
+
+    ms = [statistics.median([b - a for a, b in zip(r["ends"], r["ends"][1:])]) * 1e3
+          for r in fit]
+    log(f"13c fit: losses " + ", ".join(f"{ln['train/loss_total']:.4f}" for ln in train)
+        + "; val IoU 2D/3D/avg " + "/".join(
+            f"{evals[0][f'val/target/iou{h}']:.4f}" for h in ("", "_3d", "_avg"))
+        + f"; hits dropped per step and eval batch, mean over the ranks (the "
+        f"monitors, equal to the tables' counts): train {dropped[:3]}, val "
+        f"{dropped[3]}, test {dropped[4]}, {dropped[5]}; no level at capacity"
+        + f"; {len(ckpts)} checkpoint files, written once; both ranks' state bit-equal "
+        f"to last.pt; launches per rank {launches} (as the hierarchies predict); "
+        f"validation confusion matrices equal to one process's over the same scans "
+        f"({int(ref['cm_2d'].sum())} points, {ref_s:.1f} s); resumed run=test: both "
+        f"ranks bit-equal to last.pt; test IoU 2D {test[0]['results']['test/target/iou']:.4f} "
+        f"(fit's {fit[0]['results']['test/target/iou']:.4f})")
+    log(f"13c: {DP_RANKS} ranks sharing one card over gloo, not a scaling number: "
+        + ", ".join(f"rank {r['rank']} {m:.2f} ms/step (median of steps 2-3, trainer loop "
+                    f"wall), peak {r['peak_gib']:.2f} GiB" for r, m in zip(fit, ms))
+        + f"; fit launch {fit_s:.1f} s, resumed test launch {test_s:.1f} s")
+    return {"launches": launches, "ms": ms, "peak": [r["peak_gib"] for r in fit]}
+
+
+def run_data_parallel(dev) -> dict:
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    log(f"phase 13a: NCCL group of one, bf16 train step at batch {BATCH} per domain")
+    n = check_nccl_world_of_one(dev)
+    torch.cuda.empty_cache()
+    log(f"phase 13b: {DP_RANKS} ranks sharing the card over gloo (tools/ddp_check.py)")
+    two = check_two_ranks(dev)
+    log(f"phase 13c: configs/config.yaml through the CLI, {DP_RANKS} ranks under torchrun")
+    cli = run_cli_data_parallel(dev)
+    seconds = time.perf_counter() - t0
+    log(f"phase 13: {seconds:.1f} s")
+    return {"world_of_one_tensors": n, **two, **cli, "seconds": seconds}
+
+
 def descendants() -> list:
     """Live processes below this one (children, their children, ...), read
     from /proc; zombies are left out, they end with their parent."""
@@ -2059,6 +2343,15 @@ def run_phases(dev) -> int:
     log(f"phase 12: {len(running)} server processes of the loader pools stopped; "
         "no process of this script left running")
 
+    log("phase 13: data parallelism, one process per rank")
+    dp = run_data_parallel(dev)
+    running = descendants()
+    left = stop_processes()
+    if left:
+        raise AssertionError(f"processes still running after phase 13: {left}")
+    log(f"phase 13: {len(running)} server processes of the loader pools stopped; "
+        "no process of this script left running")
+
     from mm2d3d_tpu_torch.ops import kernels
 
     main_case = {"propagate": "L0 ", "maxpool": f"({BATCH}, 240, 400, 64) float32",
@@ -2074,7 +2367,8 @@ def run_phases(dev) -> int:
     # "child_slot_launches": phase 12d's two train steps over child slots;
     # "options_launches": phase 12e's 4-step fit with residual blocks;
     # "child_slot_case": K1 / K2 over the child slots, down L0 -> L1, tier 1
-    # (phase 12d)
+    # (phase 12d); "dp_cli_launches_per_rank": phase 13c's fit through the
+    # CLI, each of the two ranks
     path_launches = {"bandmm_dw": train_launches["bandmm_dw"],
                      "tapsum": optin_launches["tapsum"],
                      "head2d": optin_launches["head2d"]}
@@ -2103,6 +2397,7 @@ def run_phases(dev) -> int:
                                      for c in res.cases if c[0] == name and
                                      c[1].startswith("child slots down L0->L1 tier1")),
                                     None),
+            "dp_cli_launches_per_rank": [n[name] for n in dp["launches"]],
         })
     log(f"slice: {slice_ms:.2f} ms/batch of {BATCH}, {BATCH * 1e3 / slice_ms:.1f} scans/s")
     log(f"train: {train_ms:.2f} ms/step of 2 x {BATCH}, "
@@ -2122,6 +2417,9 @@ def run_phases(dev) -> int:
             f"threads, card {v['card_build_ms']:.2f}" for p, v in opts["host"].items())
         + f"; options fit, hits dropped per step {opts['options']['dropped_per_step']}"
         + f"; phase 12 {opts['seconds']:.1f} s")
+    log(f"data parallel CLI, 2 ranks sharing the card (gloo; not a scaling number): "
+        + ", ".join(f"{m:.2f} ms/step, peak {g:.2f} GiB" for m, g in zip(dp["ms"], dp["peak"]))
+        + f"; phase 13 {dp['seconds']:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

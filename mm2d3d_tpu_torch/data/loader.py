@@ -7,7 +7,8 @@ seed derived from (loader seed, epoch, cycle, index), as in the JAX
 package, so a run's batches do not depend on which worker made a sample and
 equal the JAX loader's bit for bit.  Workers return numpy samples; `collate`
 runs in the consuming process, and only that process touches the device.
-The multi-host sharding of the JAX loader is not ported (one process).
+Under data parallelism each rank's loader takes its shard of every global
+batch (`num_shards`, `shard_id`), as each process's does in JAX.
 """
 
 from __future__ import annotations
@@ -52,6 +53,14 @@ class Loader:
     """Iterates a dataset as PointBatches of CPU tensors; one epoch per
     __iter__ call.
 
+    `batch_size` is the per-process batch.  With `num_shards` > 1 (one
+    process per device), every process samples the same global order (same
+    seed) and takes its `shard_id` slice of each global batch of
+    `batch_size * num_shards` scans.  A train loader (`drop_last`) drops
+    the whole global tail, so every shard has as many batches (the
+    collectives need that); a sharded eval loader pads the global tail
+    whatever `pad_last` says, so every scan is evaluated exactly once.
+
     `pad_last` pads a partial tail batch to the full `batch_size` with
     fully-masked filler samples (zero metric and loss contribution), so
     every batch has one static shape.  `full_scale` (the model's) turns on
@@ -60,8 +69,10 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int, n_points: int,
                  shuffle: bool = False, drop_last: bool = False, seed: int = 0,
-                 num_workers: int = 0, full_scale: Optional[int] = None,
-                 pad_last: bool = False):
+                 num_workers: int = 0, num_shards: int = 1, shard_id: int = 0,
+                 full_scale: Optional[int] = None, pad_last: bool = False):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} outside [0, {num_shards})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.n_points = n_points
@@ -69,6 +80,8 @@ class Loader:
         self.drop_last = drop_last
         self.seed = seed
         self.num_workers = num_workers
+        self.num_shards = num_shards
+        self.shard_id = shard_id
         self.full_scale = full_scale
         self.pad_last = pad_last
         self.epoch = 0
@@ -87,10 +100,12 @@ class Loader:
         self.cycle = cycle
 
     def __len__(self) -> int:
+        """Global batches of one epoch: the batches of every shard."""
         n = len(self.dataset)
+        g = self.batch_size * self.num_shards
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            return n // g
+        return (n + g - 1) // g
 
     def _sample_seed(self, index: int) -> int:
         return (
@@ -114,23 +129,29 @@ class Loader:
         return self._pool
 
     def _batches(self):
-        """[(indices, number of trailing filler entries)] of one epoch."""
+        """[(indices, number of trailing filler entries)] of this shard's
+        batches in one epoch."""
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(order)
+        g = self.batch_size * self.num_shards
+        lo = self.shard_id * self.batch_size
         out = []
-        for i in range(0, n, self.batch_size):
-            b = order[i:i + self.batch_size]
-            if len(b) < self.batch_size:
+        for i in range(0, n, g):
+            b = order[i + lo:i + lo + self.batch_size]
+            if i + g > n:  # the partial global tail
                 if self.drop_last:
                     continue
-                if self.pad_last:
+                if self.pad_last or self.num_shards > 1:
+                    # the filler repeats the tail's first scan, marked
+                    # `_pad_tail_`: no point of it counts
                     n_pad = self.batch_size - len(b)
                     out.append((np.concatenate(
                         [b, np.full(n_pad, order[i], order.dtype)]), n_pad))
                     continue
-            out.append((b, 0))
+            if len(b):
+                out.append((b, 0))
         return out
 
     def _finish(self, samples, n_pad: int) -> PointBatch:

@@ -42,12 +42,16 @@ def load_datamodule(
     seed: int = 42,
     full_scale: int = 4096,
     eval_n_points: Optional[int] = None,
+    num_shards: int = 1,
+    shard_id: int = 0,
 ) -> DataModule:
     """The four datasets and loaders of a UDA scenario, as the JAX
     `load_datamodule` builds them: `augmentations` reach the train datasets
     only, `specific` all four, less the keys each dataset class does not
     take; `eval_n_points` is the val/test loaders' point budget (default
-    `n_points`); the val/test loaders pad their tail batch."""
+    `n_points`); the val/test loaders pad their tail batch.  `batch_size`
+    and `test_batch_size` are per process; with `num_shards` > 1 every
+    loader takes its `shard_id` slice of each global batch (`Loader`)."""
     specific = specific or {}
     augmentations = augmentations or {}
     if augmentations.get("image_normalizer"):
@@ -133,17 +137,19 @@ def load_datamodule(
 
     test_bs = test_batch_size or batch_size
     eval_np = eval_n_points or n_points
+    shard_kw = dict(num_shards=num_shards, shard_id=shard_id,
+                    full_scale=full_scale)
     return DataModule(
         source_train=Loader(src_train, batch_size, n_points, shuffle=True,
                             drop_last=True, seed=seed, num_workers=num_workers,
-                            full_scale=full_scale),
+                            **shard_kw),
         target_train=Loader(trg_train, batch_size, n_points, shuffle=True,
                             drop_last=True, seed=seed + 1,
-                            num_workers=num_workers, full_scale=full_scale),
+                            num_workers=num_workers, **shard_kw),
         target_val=Loader(trg_val, test_bs, eval_np, num_workers=num_workers,
-                          pad_last=True, full_scale=full_scale),
+                          pad_last=True, **shard_kw),
         target_test=Loader(trg_test, test_bs, eval_np, num_workers=num_workers,
-                           pad_last=True, full_scale=full_scale),
+                           pad_last=True, **shard_kw),
         num_classes=src_train.num_classes,
         class_names=list(src_train.merged_class_names),
     )

@@ -7,10 +7,20 @@ Usage:
         run.fast_dev_run=true
 
 Seeding, the logger, the datamodule, one optimizer with its schedule per
-branch, the task, checkpoint/resume, fit then test, on one device: the CUDA
-device unless `--device` names another (`--device cpu` runs on the CPU).
-Multi-GPU training is ROADMAP Queue 1 item 4, and qualitative figures are
-not written yet.
+branch, the task, checkpoint/resume, fit then test, on the CUDA device
+unless `--device` names another (`--device cpu` runs on the CPU).
+Qualitative figures are not written yet.
+
+Data parallelism is one process per device, started by a launcher:
+
+    torchrun --nproc_per_node=N -m mm2d3d_tpu_torch.run --config ... [overrides]
+
+Every rank trains on its shard of each global batch (`run.batch_size` and
+`run.test_batch_size` are global and must divide by the world size) and
+averages gradients, running statistics and logs with the others
+(`parallel.mesh`).  The JAX CLI runs one process over all local devices;
+this one does not start its own workers, so with several visible GPUs and
+no launcher it raises.
 """
 
 from __future__ import annotations
@@ -23,10 +33,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-_QUEUE = "ROADMAP.md, Queue 1 item {}"
-
-
-def build_task(cfg: Dict, num_classes: int, device="cuda"):
+def build_task(cfg: Dict, num_classes: int, device="cuda", group=None):
     from .models.registry import get_entry, load_model
     from .train.losses import LossComposer
     from .train.step import MM2D3DTask
@@ -85,6 +92,7 @@ def build_task(cfg: Dict, num_classes: int, device="cuda"):
         model3d=model3d,
         device=device,
         slot_profile=cfg["train"].get("slot_profile", "default"),
+        group=group,
     )
     # the models' plugin metadata for the run record
     task.model_info = {}
@@ -133,17 +141,21 @@ def resolve_num_workers(value) -> int:
     return int(value)
 
 
-def build_datamodule(cfg: Dict):
+def build_datamodule(cfg: Dict, num_shards: int = 1, shard_id: int = 0):
+    """The config's datamodule; with `num_shards` > 1, this process's shard:
+    the global `run.batch_size` and `run.test_batch_size` divided by the
+    shard count."""
     from .data.registry import load_datamodule
 
     ds = cfg["dataset"]
     run = cfg["run"]
+    test_bs = run.get("test_batch_size")
     return load_datamodule(
         ds["name"],
         cfg_source=ds["source"],
         cfg_target=ds["target"],
-        batch_size=run["batch_size"],
-        test_batch_size=run.get("test_batch_size"),
+        batch_size=run["batch_size"] // num_shards,
+        test_batch_size=None if test_bs is None else test_bs // num_shards,
         n_points=cfg["train"].get("n_points", 8192),
         eval_n_points=cfg["train"].get("eval_n_points"),
         num_workers=resolve_num_workers(cfg["train"].get("num_workers", "auto")),
@@ -151,12 +163,37 @@ def build_datamodule(cfg: Dict):
         specific=ds.get("specific"),
         seed=cfg["train"].get("seed", 42),
         full_scale=cfg["models"]["net3d"]["backbone_3d"].get("full_scale", 4096),
+        num_shards=num_shards,
+        shard_id=shard_id,
     )
 
 
-def main(argv=None):
-    """Run the config -> (the `Trainer` after fit and test, the test
-    results)."""
+def data_parallel_off(run_cfg: Dict) -> bool:
+    # YAML reads an unquoted `off` as false
+    return run_cfg.get("data_parallel", "auto") in ("off", False)
+
+
+def check_data_parallel(run_cfg: Dict, world: int) -> None:
+    """The JAX CLI's refusals for a run over `world` processes."""
+    bs, tbs = run_cfg["batch_size"], run_cfg.get("test_batch_size")
+    if data_parallel_off(run_cfg) and world > 1:
+        # without the averages each process would train a model of its own
+        # on its shard while writing to the same out_dir
+        raise ValueError(
+            "multi-host run requires the data-parallel mesh: "
+            "run.data_parallel must not be 'off' and the global batch "
+            f"({bs}) must be divisible by the device count ({world})")
+    if bs % world:
+        raise ValueError(f"global batch {bs} not divisible by {world} processes")
+    if tbs is not None and tbs % world:
+        raise ValueError(
+            f"run.test_batch_size {tbs} not divisible by {world} processes (the "
+            "floor-divided shards would silently shrink the global eval batch "
+            "and drop extra tail scans)")
+
+
+def parse(argv=None):
+    """The command line -> (its arguments, the config with its overrides)."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", default="configs/config.yaml")
     parser.add_argument("--device", default="cuda",
@@ -164,25 +201,43 @@ def main(argv=None):
     parser.add_argument("overrides", nargs="*", help="group=name or a.b=c")
     args = parser.parse_args(argv)
 
-    from .train.step import resolve_device
     from .utils.config import _deep_merge, load_config
 
     cfg = load_config(args.config, args.overrides)
     # dataset-specific train overrides (e.g. lambda_xm for vkitti)
     if "train_overrides" in cfg:
         cfg["train"] = _deep_merge(cfg["train"], cfg.pop("train_overrides"))
+    return args, cfg
+
+
+def main(argv=None):
+    """Run the config -> (the `Trainer` after fit and test, the test
+    results)."""
+    from .parallel import mesh
+    from .train.step import resolve_device
+
+    args, cfg = parse(argv)
     run_cfg = cfg["run"]
-    if run_cfg.get("distributed") or os.environ.get("MM2D3D_DISTRIBUTED") == "1":
-        raise NotImplementedError(
-            "multi-process training is not ported to mm2d3d_tpu_torch yet "
-            f"({_QUEUE.format(4)})")
-    device = resolve_device(args.device)
-    if (device.type == "cuda" and torch.cuda.device_count() > 1
-            and run_cfg.get("data_parallel", "auto") != "off"):
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} CUDA devices are visible, and data "
-            f"parallel training is not ported yet ({_QUEUE.format(4)}); make "
-            "one visible (CUDA_VISIBLE_DEVICES) or set run.data_parallel=off")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    group = None
+    if (world > 1 or run_cfg.get("distributed")
+            or os.environ.get("MM2D3D_DISTRIBUTED") == "1"):
+        check_data_parallel(run_cfg, world)
+        device = mesh.init_process_group(args.device)
+        group = torch.distributed.group.WORLD
+        if torch.distributed.get_rank() == 0:
+            print(f"data parallel over {world} processes "
+                  f"({torch.distributed.get_backend()}, {device})", flush=True)
+    else:
+        device = resolve_device(args.device)
+        n_gpu = torch.cuda.device_count() if device.type == "cuda" else 0
+        if n_gpu > 1 and not mesh.launched() and not data_parallel_off(run_cfg):
+            raise RuntimeError(
+                f"{n_gpu} CUDA devices are visible: train on all of them with one "
+                f"process each, `torchrun --nproc_per_node={n_gpu} -m "
+                "mm2d3d_tpu_torch.run --config ...` (this CLI starts no workers of "
+                "its own), or on one with run.data_parallel=off or "
+                "CUDA_VISIBLE_DEVICES")
 
     seed = cfg["train"].get("seed", 42)
     np.random.seed(seed)
@@ -197,9 +252,10 @@ def main(argv=None):
         {"config": args.config, "overrides": args.overrides, **cfg["train"]["params"]})
     snapshot_code(out_dir, osp.dirname(osp.dirname(osp.abspath(__file__))))
 
-    dm = build_datamodule(cfg)
+    shards = (world, torch.distributed.get_rank()) if group is not None else (1, 0)
+    dm = build_datamodule(cfg, *shards)
     resolve_auto_params(cfg, dm)
-    task = build_task(cfg, dm.num_classes, device=device)
+    task = build_task(cfg, dm.num_classes, device=device, group=group)
     logger.log_hyperparams({"models": task.model_info})
     params = cfg["train"]["params"]
     if params.get("val_log_images_step") or params.get("train_log_images_step"):
@@ -248,6 +304,8 @@ def main(argv=None):
         # drain and close the worker pools, also on an aborted run
         for lo in (dm.source_train, dm.target_train, dm.target_val, dm.target_test):
             lo.close()
+        if group is not None:
+            mesh.destroy_process_group()
     logger.finish()
     return trainer, results
 

@@ -1,5 +1,6 @@
 """What `chip_smoke.py` and the K1/K2 tools (`tools/slotconv_ab.py`,
-`tools/slotconv_tiles.py`) share: the flagship batch, the device timer, and
+`tools/slotconv_tiles.py`) share: the flagship batch, the device timer, the
+kernel launches a hierarchy predicts (also for `tools/ddp_check.py`), and
 K1's and K2's call forms at the flagship's shapes, at the KITTI-family
 configs' level-0 tiers (the dense slot profile, batch 16 x 10,240 points),
 over the strided convs' child slots (K = 8, H = 3 and 5) and at the
@@ -65,6 +66,45 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / reps)
     return statistics.median(samples)
+
+
+def tiers(level) -> int:
+    return 3 if level.slot_srcm is not None else (2 if level.slot_src2 is not None else 1)
+
+
+def expected_launches(hier, residual: bool = False) -> dict:
+    """Kernel launches of one forward, from the hierarchy: K3 at every level
+    but the coarsest, K4 once per encoder, K1 once per tier of every
+    submanifold conv (input conv, encoder and decoder blocks, two per
+    block with `residual`) plus once per strided conv, and once more for
+    a down conv over child slots (its heavy tier)."""
+    lv = hier.levels
+    n = len(lv)
+    blocks = sum(tiers(l) for l in lv) + sum(tiers(l) for l in lv[:-1])
+    k1 = tiers(lv[0]) + (2 if residual else 1) * blocks
+    k1 += sum(3 if t.cslot_src is not None else 2 for t in hier.transitions)
+    return {"propagate": n - 1, "maxpool": 2, "bandmm": k1, "bandmm_dw": 0,
+            "head2d": 0, "tapsum": 0}
+
+
+def expected_train_launches(hiers, residual: bool = False,
+                            host_built: bool = False) -> dict:
+    """Kernel launches of one train step, from the two domains' hierarchies:
+    per domain, K1 twice per eval-forward launch (forward and input
+    gradient), K2 once per eval-forward K1 launch (weight gradient), K3 per
+    topology (none for topologies built on the host) and K4 per encoder as
+    in the forward (the pool's backward is PyTorch's).  Over child slots
+    the count holds too: the down conv's two K1 and two K2 calls, the up
+    conv's input gradient's two K1 calls."""
+    out = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0, "head2d": 0,
+           "tapsum": 0}
+    for hier in hiers:
+        ev = expected_launches(hier, residual)
+        out["bandmm"] += 2 * ev["bandmm"]
+        out["bandmm_dw"] += ev["bandmm"]
+        out["propagate"] += 0 if host_built else ev["propagate"]
+        out["maxpool"] += ev["maxpool"]
+    return out
 
 
 def _hierarchy(dev, kitti: bool = False):

@@ -124,7 +124,10 @@ class MM2D3DTask:
     as in JAX; an optimizer config's `accumulate_steps` k > 1 averages the
     gradients of k train steps per update (`optim.MultiSteps`), while the
     running statistics and `step` (and with it the dropout stream) move on
-    every train step."""
+    every train step.  `group` is the process group of a data-parallel run
+    (`parallel.mesh`), the counterpart of the JAX task's
+    `axis_name="data"`: the train step then averages the gradients, the
+    running statistics and the logs over its ranks; None trains alone."""
 
     def __init__(self, num_classes: int, class_weights=None,
                  loss_composer=None, lambda_xm_src: float = 1.0,
@@ -137,8 +140,9 @@ class MM2D3DTask:
                  optimizer_3d: Optional[Dict[str, Any]] = None,
                  model2d: Optional[nn.Module] = None,
                  model3d: Optional[nn.Module] = None, device="cuda",
-                 slot_profile: str = "default"):
+                 slot_profile: str = "default", group=None):
         self.num_classes = num_classes
+        self.group = group
         self.slot_profile = slot_profile
         self.loss_composer = loss_composer
         self.lambda_xm_src = lambda_xm_src
@@ -192,9 +196,13 @@ class MM2D3DTask:
     def load_flax(self, params2d: Mapping, stats2d: Mapping,
                   params3d: Mapping, stats3d: Mapping) -> None:
         """Weights of the JAX package's task (nested dicts of numpy arrays)."""
-        sd2, sd3 = from_flax(params2d, stats2d, params3d, stats3d)
-        self.model2d.load_state_dict(sd2, strict=True)
-        self.model3d.load_state_dict(sd3, strict=True)
+        self.load_state_dicts(*from_flax(params2d, stats2d, params3d, stats3d))
+
+    def load_state_dicts(self, state2d: Mapping, state3d: Mapping) -> None:
+        """Both networks' weights and running statistics, then to the
+        device, with fresh optimizers."""
+        self.model2d.load_state_dict(state2d, strict=True)
+        self.model3d.load_state_dict(state3d, strict=True)
         self._to_device()
 
     def _to_device(self) -> None:
@@ -344,6 +352,18 @@ class MM2D3DTask:
         if src.n_dropped is not None:
             logs["train/points_dropped"] = (
                 src.n_dropped.sum() + trg.n_dropped.sum()).float()
+        if self.group is not None:
+            # what the JAX step pmeans, where it does: after both domains'
+            # forwards moved the running statistics, before the optimizers
+            # (and `MultiSteps`' accumulation) read the gradients
+            from ..parallel.mesh import all_mean
+
+            nets = (self.model2d, self.model3d)
+            all_mean([p.grad for net in nets for p in net.parameters()
+                      if p.grad is not None]
+                     + [b for net in nets for name, b in net.named_buffers()
+                        if name.endswith(("running_mean", "running_var"))]
+                     + list(logs.values()), self.group)
 
         self.opt2d.step()
         self.opt3d.step()

@@ -15,7 +15,12 @@ fit / validate / test loop, checkpoints and resume.
 - resume from ``last``: weights, running statistics, both optimizers (with
   their gradient accumulators, `optim.MultiSteps`) and their schedules,
   `task.step` and the dropout generator, so the resumed run continues as
-  the uninterrupted one would, between two micro-steps too.
+  the uninterrupted one would, between two micro-steps too;
+- data parallelism, when the task has a process group (`parallel.mesh`):
+  rank 0's state replicated at the start, each eval batch's metrics and
+  logs reduced over the ranks, so every rank reports the same numbers and
+  takes the same checkpoint decisions; rank 0 writes the checkpoints, and
+  every rank waits for each one.
 
 The task holds its state in its modules and optimizers
 (`train.step.MM2D3DTask`); the dropout generator is this trainer's, on the
@@ -32,9 +37,11 @@ import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..data import host_topology as HT
 from ..data.loader import max_size_cycle, prefetch_topology_pairs, prefetched
+from ..parallel import mesh
 from ..utils.logging import rank_zero
 from .batch import PointBatch
 from .metrics import iou_per_class
@@ -65,8 +72,13 @@ class CheckpointIO:
 
     def save(self, name: str, task: MM2D3DTask, generator: torch.Generator,
              meta: Dict) -> None:
-        if not rank_zero():
-            return
+        """Rank 0 writes; under data parallelism every rank waits for it."""
+        if rank_zero():
+            self._write(name, task, generator, meta)
+        mesh.barrier()
+
+    def _write(self, name: str, task: MM2D3DTask, generator: torch.Generator,
+               meta: Dict) -> None:
         state = {
             "model2d": task.model2d.state_dict(),
             "model3d": task.model3d.state_dict(),
@@ -149,12 +161,19 @@ class Trainer:
         self.strict_eval_points = strict_eval_points
         self.strict_eval_overflow = strict_eval_overflow
         self.prefetch_batches = prefetch_batches
+        self._rank0 = rank_zero()
+        if host_topology and task.group is not None:
+            # as the JAX trainer does under a mesh: each rank builds its
+            # shard's topologies on its device
+            if self._rank0:
+                print("train.host_topology is off under data parallelism: each "
+                      "rank builds its topologies on its device", flush=True)
+            host_topology = False
         self.host_topology = host_topology
         if host_topology:
             from .. import native
 
             native.lib()  # builds or loads the host library, or raises
-        self._rank0 = rank_zero()
         self.generator = torch.Generator(device=task.device).manual_seed(seed)
         self.global_step = 0
         self.start_epoch = 0
@@ -172,7 +191,8 @@ class Trainer:
 
     def init_or_resume(self, resume: bool = False) -> None:
         """Seeded random weights, then, with `resume` and a ``last``
-        checkpoint, the state it holds."""
+        checkpoint, the state it holds (every rank reads it onto its own
+        device); under data parallelism, then rank 0's state on every rank."""
         self.task.init_params(torch.Generator().manual_seed(self.seed))
         self.initialized = True
         if resume and self.ckpt.exists("last"):
@@ -183,6 +203,8 @@ class Trainer:
             if self._rank0:
                 print(f"resumed from epoch {self.start_epoch}, "
                       f"step {self.global_step}", flush=True)
+        if self.task.group is not None:
+            mesh.replicate(self.task, self.task.group)
 
     def _to_device(self, batch: PointBatch) -> PointBatch:
         """The batch's tensors on the task's device: from pinned memory with
@@ -294,16 +316,8 @@ class Trainer:
     # -- eval ----------------------------------------------------------------
 
     def _run_eval(self, loader, stage: str) -> Dict[str, float]:
-        metrics = EvalMetrics.create(self.task.num_classes, self.task.device)
-        losses = []
-        points_dropped = 0
-        for i, batch in enumerate(loader):
-            if batch.n_dropped is not None:
-                points_dropped += int(batch.n_dropped.sum())
-            metrics, logs = self.task.eval_step(self._to_device(batch), metrics)
-            losses.append(logs)
-            if self.limit_val_batches and i + 1 >= self.limit_val_batches:
-                break
+        metrics, losses, points_dropped = evaluate(
+            self.task, map(self._to_device, loader), self.limit_val_batches)
 
         if points_dropped:
             msg = (
@@ -392,3 +406,27 @@ class Trainer:
     def test(self) -> Dict[str, float]:
         assert self.test_loader is not None and self.initialized
         return self._run_eval(self.test_loader, "test/target")
+
+
+def evaluate(task: MM2D3DTask, batches, limit: Optional[int] = None):
+    """The eval loop over `batches` (at most `limit` of them) -> (confusion
+    matrices, the logs of each batch, in-bounds points cut by the point
+    budget).  With the task's process group, each batch's metrics and logs
+    are reduced over the ranks (`parallel.mesh.reduce_eval`) and the cut
+    points summed, so every rank returns the same."""
+    metrics = EvalMetrics.create(task.num_classes, task.device)
+    losses = []
+    dropped = torch.zeros((), dtype=torch.int64, device=task.device)
+    for i, batch in enumerate(batches):
+        if batch.n_dropped is not None:
+            dropped += batch.n_dropped.sum()
+        new, logs = task.eval_step(batch, metrics)
+        if task.group is not None:
+            new, logs = mesh.reduce_eval(metrics, new, logs, task.group)
+        metrics = new
+        losses.append(logs)
+        if limit and i + 1 >= limit:
+            break
+    if task.group is not None:
+        dist.all_reduce(dropped, group=task.group)
+    return metrics, losses, int(dropped)

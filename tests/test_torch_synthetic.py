@@ -88,6 +88,8 @@ def test_port_imports_without_jax():
         "import mm2d3d_tpu_torch.train.optim, mm2d3d_tpu_torch.ops.image\n"
         "import mm2d3d_tpu_torch.tools.profile_forward\n"
         "import mm2d3d_tpu_torch.native, mm2d3d_tpu_torch.data.host_topology\n"
+        "import mm2d3d_tpu_torch.parallel.mesh, mm2d3d_tpu_torch.tools.ddp_check\n"
+        "import mm2d3d_tpu_torch.run, mm2d3d_tpu_torch.train.trainer\n"
         "from mm2d3d_tpu_torch.ops import kernels\n"
         "assert sorted(kernels.all_kernels()) == ['bandmm', 'bandmm_dw', 'head2d', "
         "'maxpool', 'propagate', 'tapsum']\n"

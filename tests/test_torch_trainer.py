@@ -451,7 +451,6 @@ def test_cli_worker_pools_then_stop_worker_server(workspace):
 
 
 @pytest.mark.parametrize("override,error", [
-    ("run.distributed=true", NotImplementedError),
     ("logging.wandb.project=x", NotImplementedError),
     ("logging.mlflow.experiment=x", NotImplementedError),
 ])
