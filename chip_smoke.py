@@ -39,8 +39,18 @@ held against the same two ranks on the CPU and two bf16 steps with the
 ranks bit-identical; and configs/config.yaml through the CLI under torchrun
 with two ranks, K1-K4's launches per rank held to the hierarchies'
 prediction, the resumed ranks bit-equal to the checkpoint and the
-validation's confusion matrices equal to one process's.  Prints, in its
-last lines, the card (nvidia-smi name and power
+validation's confusion matrices equal to one process's.  The CLI runs of
+phases 10-13 write the configs' qualitative figures as shipped (step 0,
+each eval loop's first batch), and their launches are held with them.
+Phase 14 drives the self-training stage and the training tools over phase
+10's tree: the pseudo-label generator from phase 10's `last` checkpoint
+(the schema against the scans, K1, K3 and K4 launches per scan as
+predicted, the card's fp32 records against the CPU's on two scans), two
+CLI steps on the written labels and the doctor's `check_pselab` on them;
+the flagship learning check against the committed H100 trajectory (exit
+0), then with its fault injected (exit 1); and the CLI writing a figure
+every step and eval batch, held pixel by pixel to the palette.  Prints,
+in its last lines, the card (nvidia-smi name and power
 limit), one JSON line of kernel results, and one JSON line
 {"ok": true, "device": {...}}.  Any failed phase raises, and
 the script exits non-zero without the final line; it also refuses to run
@@ -52,10 +62,12 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1045,13 +1057,18 @@ def cli_overrides(root: str, pre: str, cache: str, out: str) -> list:
         "run.limit_val_batches=2", f"train.num_workers={CLI_WORKERS}"]
 
 
-def run_cli(dev, extra=(), what="phase 10"):
+def run_cli(dev, extra=(), what="phase 10", root=None):
     """configs/config.yaml as shipped (batch 16 per domain, n_points 8192,
     m=16, 7 planes, full_scale 4096, bf16, AdamW + OneCycle) through
     `mm2d3d_tpu_torch.run.main`, with the `extra` overrides: fit (3 train
     steps, validation and test on 2 batches each), then `run=test` with
-    resume."""
+    resume.  The synthetic tree and the run (``<root>/run``) are written
+    under `root`, a temporary directory unless given."""
     import tempfile
+
+    if root is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return run_cli(dev, extra, what, tmp)
 
     from mm2d3d_tpu_torch import run as cli
     from mm2d3d_tpu_torch.ops import kernels
@@ -1060,91 +1077,97 @@ def run_cli(dev, extra=(), what="phase 10"):
 
     config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                           "config.yaml")
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        pre, cache = write_nuscenes_tree(root)
-        out = os.path.join(root, "run")
-        overrides = cli_overrides(root, pre, cache, out) + list(extra)
-        log(f"synthetic nuScenes tree: {sum(CLI_SPLITS.values())} scans "
-            f"{CLI_SPLITS}, {CLI_FRAMES} cached frames, "
-            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pre, cache = write_nuscenes_tree(root)
+    out = os.path.join(root, "run")
+    overrides = cli_overrides(root, pre, cache, out) + list(extra)
+    log(f"synthetic nuScenes tree: {sum(CLI_SPLITS.values())} scans "
+        f"{CLI_SPLITS}, {CLI_FRAMES} cached frames, "
+        f"{time.perf_counter() - t0:.1f} s")
 
-        # the end of each train step, after the device finished it: the
-        # wall time per step of the trainer's own loop, loader included
-        ends = []
-        step = MM2D3DTask.train_step
+    # the end of each train step, after the device finished it: the
+    # wall time per step of the trainer's own loop, loader included
+    ends = []
+    step = MM2D3DTask.train_step
 
-        def timed_step(self, *a, **kw):
-            logs = step(self, *a, **kw)
-            torch.cuda.synchronize()
-            ends.append(time.perf_counter())
-            return logs
+    def timed_step(self, *a, **kw):
+        logs = step(self, *a, **kw)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return logs
 
-        kernels.reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        MM2D3DTask.train_step = timed_step
-        t_fit = time.perf_counter()
-        try:
-            fit, fit_results = cli.main(["--config", config, *overrides])
-        finally:
-            MM2D3DTask.train_step = step
-        fit_s = time.perf_counter() - t_fit
-        launches = kernels.counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        for name in ("bandmm", "bandmm_dw", "propagate", "maxpool"):
-            if launches[name] <= 0:
-                raise AssertionError(f"{name}: no launch in the CLI run {launches}")
-        if len(ends) != 3 or fit.global_step != 3:
-            raise AssertionError(f"{len(ends)} train steps, global_step {fit.global_step}")
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    MM2D3DTask.train_step = timed_step
+    t_fit = time.perf_counter()
+    try:
+        fit, fit_results = cli.main(["--config", config, *overrides])
+    finally:
+        MM2D3DTask.train_step = step
+    fit_s = time.perf_counter() - t_fit
+    launches = kernels.counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name in ("bandmm", "bandmm_dw", "propagate", "maxpool"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name}: no launch in the CLI run {launches}")
+    if len(ends) != 3 or fit.global_step != 3:
+        raise AssertionError(f"{len(ends)} train steps, global_step {fit.global_step}")
 
-        with open(os.path.join(out, "metrics.jsonl")) as f:
-            lines = [json.loads(ln) for ln in f]
-        train = [ln for ln in lines if "train/loss_total" in ln]
-        evals = [ln for ln in lines if "val/target/iou" in ln]
-        if len(train) != 3 or len(evals) != 1:
-            raise AssertionError(f"{len(train)} train and {len(evals)} eval log lines")
-        for ln in train:
-            bad = {k: v for k, v in ln.items() if not math.isfinite(v)}
-            if bad:
-                raise AssertionError(f"step {ln['step']}: non-finite {bad}")
-            for name in ("train/nbr_slot_overflow", "train/voxel_overflow_levels"):
-                if ln[name] != 0:
-                    raise AssertionError(f"step {ln['step']}: {name} = {ln[name]}")
-        for stage in ("val/target", "test/target"):
-            for head in ("", "_3d", "_avg"):
-                key = f"{stage}/iou{head}"
-                if not 0 <= evals[0].get(key, -1) <= 1:
-                    raise AssertionError(f"{key}: {evals[0].get(key)}")
-        ckpts = os.path.join(out, "ckpts")
-        for name in ("last", "best_2d", "best_3d"):
-            for ext in (".pt", ".meta.json"):
-                if not os.path.exists(os.path.join(ckpts, name + ext)):
-                    raise AssertionError(f"no checkpoint {name}{ext}")
-        log("fit: losses " + ", ".join(f"{ln['train/loss_total']:.4f}" for ln in train)
-            + "; val IoU 2D/3D/avg " + "/".join(
-                f"{evals[0][f'val/target/iou{h}']:.4f}" for h in ("", "_3d", "_avg"))
-            + f"; checkpoints last, best_2d, best_3d; launches {launches}")
-
-        kernels.reset_counts()
-        tester, test_results = cli.main(["--config", config, *overrides, "run=test",
-                                         "run.resume=true"])
-        if tester.global_step != 3 or tester.start_epoch != 1:
-            raise AssertionError(f"resumed at step {tester.global_step}, "
-                                 f"epoch {tester.start_epoch}")
-        saved = torch.load(os.path.join(ckpts, "last.pt"), map_location=dev,
-                           weights_only=True)
-        resumed = snapshot(tester.task, tester.generator)
-        n = assert_same_state(saved, resumed, "resumed vs saved")
-        assert_same_state(snapshot(fit.task, fit.generator), resumed,
-                          "resumed vs fitted")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f]
+    train = [ln for ln in lines if "train/loss_total" in ln]
+    evals = [ln for ln in lines if "val/target/iou" in ln]
+    if len(train) != 3 or len(evals) != 1:
+        raise AssertionError(f"{len(train)} train and {len(evals)} eval log lines")
+    for ln in train:
+        bad = {k: v for k, v in ln.items() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"step {ln['step']}: non-finite {bad}")
+        for name in ("train/nbr_slot_overflow", "train/voxel_overflow_levels"):
+            if ln[name] != 0:
+                raise AssertionError(f"step {ln['step']}: {name} = {ln[name]}")
+    for stage in ("val/target", "test/target"):
         for head in ("", "_3d", "_avg"):
-            key = f"test/target/iou{head}"
-            if not 0 <= test_results.get(key, -1) <= 1:
-                raise AssertionError(f"{key}: {test_results.get(key)}")
-        log(f"run=test, resumed: all {n} tensors of `last` bit-equal to the fitted "
-            "task's; test IoU 2D/3D/avg " + "/".join(
-                f"{test_results[f'test/target/iou{h}']:.4f}" for h in ("", "_3d", "_avg"))
-            + f"; launches {kernels.counts()}")
+            key = f"{stage}/iou{head}"
+            if not 0 <= evals[0].get(key, -1) <= 1:
+                raise AssertionError(f"{key}: {evals[0].get(key)}")
+    ckpts = os.path.join(out, "ckpts")
+    for name in ("last", "best_2d", "best_3d"):
+        for ext in (".pt", ".meta.json"):
+            if not os.path.exists(os.path.join(ckpts, name + ext)):
+                raise AssertionError(f"no checkpoint {name}{ext}")
+    # the figures as shipped: step 0 (train_log_images_step 2000) and
+    # each eval loop's first batch (val_log_images_step 50)
+    figures = sorted(os.listdir(os.path.join(out, "figures")))
+    if figures != ["test_target_step3.png", "train_source_step0.png",
+                   "train_target_step0.png", "val_target_step3.png"]:
+        raise AssertionError(f"figures {figures}")
+    log("fit: losses " + ", ".join(f"{ln['train/loss_total']:.4f}" for ln in train)
+        + "; val IoU 2D/3D/avg " + "/".join(
+            f"{evals[0][f'val/target/iou{h}']:.4f}" for h in ("", "_3d", "_avg"))
+        + f"; checkpoints last, best_2d, best_3d; figures {figures}; launches "
+        f"{launches}")
+
+    kernels.reset_counts()
+    tester, test_results = cli.main(["--config", config, *overrides, "run=test",
+                                     "run.resume=true"])
+    if tester.global_step != 3 or tester.start_epoch != 1:
+        raise AssertionError(f"resumed at step {tester.global_step}, "
+                             f"epoch {tester.start_epoch}")
+    saved = torch.load(os.path.join(ckpts, "last.pt"), map_location=dev,
+                       weights_only=True)
+    resumed = snapshot(tester.task, tester.generator)
+    n = assert_same_state(saved, resumed, "resumed vs saved")
+    assert_same_state(snapshot(fit.task, fit.generator), resumed,
+                      "resumed vs fitted")
+    for head in ("", "_3d", "_avg"):
+        key = f"test/target/iou{head}"
+        if not 0 <= test_results.get(key, -1) <= 1:
+            raise AssertionError(f"{key}: {test_results.get(key)}")
+    log(f"run=test, resumed: all {n} tensors of `last` bit-equal to the fitted "
+        "task's; test IoU 2D/3D/avg " + "/".join(
+            f"{test_results[f'test/target/iou{h}']:.4f}" for h in ("", "_3d", "_avg"))
+        + f"; launches {kernels.counts()}")
 
     ms = statistics.median([b - a for a, b in zip(ends, ends[1:])]) * 1e3
     scans = 2 * 16
@@ -1344,10 +1367,12 @@ def run_kitti_config(dev, config: str, roots: dict, root: str, extra=()):
     overrides = kitti_overrides(roots, source, out) + list(extra)
     classes = load_config(path, overrides)["train"]["params"]["class_names"]
 
-    # train-step ends; (kind, hierarchy) per topology: "train" and "eval"
-    # built by the task, "host" built on the host for a train step
-    ends, builds = [], []
-    step, build = MM2D3DTask.train_step, MM2D3DTask.build_topology
+    # train-step ends; (kind, hierarchy) per topology: "train", "eval" and
+    # "viz" (a figure's forward) built by the task, "host" built on the host
+    # for a train step
+    ends, builds, in_viz = [], [], []
+    step, build, viz = (MM2D3DTask.train_step, MM2D3DTask.build_topology,
+                        MM2D3DTask.viz_forward)
 
     def timed_step(self, src, trg, gen, *topos):
         builds.extend(("host", t[1]) for t in topos if t is not None)
@@ -1358,21 +1383,29 @@ def run_kitti_config(dev, config: str, roots: dict, root: str, extra=()):
 
     def kept_build(self, batch):
         topo = build(self, batch)
-        builds.append(("eval" if torch.is_inference_mode_enabled() else "train",
-                       topo[1]))
+        builds.append(("viz" if in_viz else "eval" if torch.is_inference_mode_enabled()
+                       else "train", topo[1]))
         return topo
+
+    def kept_viz(self, *a, **kw):
+        in_viz.append(True)
+        try:
+            return viz(self, *a, **kw)
+        finally:
+            in_viz.pop()
 
     def expected(kept):
         exp = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0,
                "head2d": 0, "tapsum": 0}
         for kind, hier in kept:
-            one = (expected_launches(hier) if kind == "eval" else
+            one = (expected_launches(hier) if kind in ("eval", "viz") else
                    expected_train_launches([hier], host_built=kind == "host"))
             for name, n in one.items():
                 exp[name] += n
         return exp
 
     MM2D3DTask.train_step, MM2D3DTask.build_topology = timed_step, kept_build
+    MM2D3DTask.viz_forward = kept_viz
     try:
         kernels.reset_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -1389,22 +1422,31 @@ def run_kitti_config(dev, config: str, roots: dict, root: str, extra=()):
         test_launches = kernels.counts()
     finally:
         MM2D3DTask.train_step, MM2D3DTask.build_topology = step, build
+        MM2D3DTask.viz_forward = viz
     test_builds = builds
 
     if fit.task.slot_profile != "dense":
         raise AssertionError(f"{config}: slot profile {fit.task.slot_profile}")
-    n_train = sum(k != "eval" for k, _ in fit_builds)
-    n_host = sum(k == "host" for k, _ in fit_builds)
+    kinds = [k for k, _ in fit_builds]
+    n_train = kinds.count("train") + kinds.count("host")
+    n_host = kinds.count("host")
     if len(ends) != 3 or fit.global_step != 3 or n_train != 6 or \
             n_host != (6 if fit.host_topology else 0):
         raise AssertionError(f"{config}: {len(ends)} train steps, global_step "
                              f"{fit.global_step}, {n_train} train topologies, "
                              f"{n_host} of them built on the host")
-    if len(fit_builds) - n_train != 6 or len(test_builds) != 2 or any(
-            k != "eval" for k, _ in test_builds):
-        raise AssertionError(f"{config}: {len(fit_builds) - n_train} eval batches in "
-                             f"the fit (2 val, 2 + 2 test), {len(test_builds)} in the "
-                             "resumed test")
+    # the figures: step 0's two batches (train_log_images_step 2000) and the
+    # first batch of each eval loop (val_log_images_step 50)
+    test_kinds = sorted(k for k, _ in test_builds)
+    if kinds.count("eval") != 6 or kinds.count("viz") != 5 or \
+            test_kinds != ["eval", "eval", "viz"]:
+        raise AssertionError(f"{config}: {kinds.count('eval')} eval batches in the "
+                             f"fit (2 val, 2 + 2 test), {kinds.count('viz')} figures "
+                             f"(2 train, 3 eval); the resumed test {test_kinds}")
+    figures = sorted(os.listdir(os.path.join(out, "figures")))
+    if figures != ["test_target_step3.png", "train_source_step0.png",
+                   "train_target_step0.png", "val_target_step3.png"]:
+        raise AssertionError(f"{config}: figures {figures}")
     for i, (kind, hier) in enumerate(fit_builds + test_builds):
         check_hierarchy(hier, f"{config} {kind} topology {i}")
     check_counts(launches, expected(fit_builds), f"{config} fit")
@@ -1460,8 +1502,9 @@ def run_kitti_config(dev, config: str, roots: dict, root: str, extra=()):
     log(f"{config}: losses " + ", ".join(f"{ln['train/loss_total']:.4f}" for ln in train)
         + f"; {n_classes} classes {classes}; val IoU 2D/3D/avg " + "/".join(
             f"{evals[0][f'val/target/iou{h}']:.4f}" for h in ("", "_3d", "_avg"))
-        + f"; both monitors 0 on {n_train} train and {len(fit_builds) - n_train + 2} "
-        f"eval topologies; checkpoints last, best_2d, best_3d; resumed: all {n} "
+        + f"; both monitors 0 on {n_train} train and {kinds.count('eval') + 2} "
+        f"eval topologies; figures {figures}; checkpoints last, best_2d, best_3d; "
+        f"resumed: all {n} "
         f"tensors of `last` bit-equal; fit launches {launches} (as predicted), "
         f"resumed test {test_launches}")
     log(f"{config}{' ' + ' '.join(extra) if extra else ''} train step, bf16, batch "
@@ -2121,8 +2164,11 @@ def run_cli_data_parallel(dev) -> dict:
         launches = []
         for r in fit:
             kinds = [t["kind"] for t in r["topologies"]]
+            # rank 0 alone runs the figures' forwards: step 0's two batches
+            # and the first batch of each of the 3 eval loops
             if r["global_step"] != 3 or len(r["ends"]) != 3 or \
-                    kinds.count("train") != 6 or kinds.count("eval") != 6:
+                    kinds.count("train") != 6 or kinds.count("eval") != 6 or \
+                    kinds.count("viz") != (5 if r["rank"] == 0 else 0):
                 raise AssertionError(f"13c rank {r['rank']}: step {r['global_step']}, "
                                      f"{len(r['ends'])} steps, topologies {kinds}")
             check_counts(r["launches"], expected(r), f"13c fit rank {r['rank']}")
@@ -2221,6 +2267,307 @@ def run_data_parallel(dev) -> dict:
     return {"world_of_one_tensors": n, **two, **cli, "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# phase 14: the self-training stage and the training tools
+# --------------------------------------------------------------------------
+
+# launches per generated scan: one eval forward at batch 1 (PERF.md, Findings)
+GEN_PER_SCAN = {"bandmm": 51, "propagate": 6, "maxpool": 2, "bandmm_dw": 0,
+                "head2d": 0, "tapsum": 0}
+PSELAB_MARGIN, PSELAB_PROB_TOL = 1e-3, 1e-4  # card vs CPU records, fp32
+FIG_STEPS = 2
+FIG_MIN_POINTS = 100  # points alone under their markers in 14c's figure
+
+
+def config_path(name: str = "config.yaml") -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", name)
+
+
+def generate_pselab(dev, root: str) -> dict:
+    """14a: the pseudo-label generator on the card over phase 10's tree from
+    its `last` checkpoint: the schema against the scans, K1, K3 and K4
+    launches per scan as predicted; the card's records against the CPU's
+    in fp32 on two scans; two train steps of the CLI on the written file
+    (every target batch carrying pseudo labels) and the doctor's
+    `check_pselab` on it, which finds no problem."""
+    import pickle
+
+    import numpy as np
+
+    from mm2d3d_tpu_torch import run as cli
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.tools import doctor
+    from mm2d3d_tpu_torch.tools import generate_pseudo_labels as gen
+    from mm2d3d_tpu_torch.train.step import MM2D3DTask
+
+    pre, cache = os.path.join(root, "preprocess"), os.path.join(root, "image_cache")
+    paths = cli_overrides(root, pre, cache, os.path.join(root, "run"))
+    cfg = cli.parse_config(config_path(), paths)
+    out = os.path.join(root, "pselab", "train_singapore.npy")
+
+    hiers, build = [], MM2D3DTask.build_topology
+
+    def kept_build(self, batch):
+        topo = build(self, batch)
+        hiers.append(topo[1])
+        return topo
+
+    MM2D3DTask.build_topology = kept_build
+    try:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        records = gen.generate(cfg, "last", out, device=dev)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = kernels.counts()
+    finally:
+        MM2D3DTask.build_topology = build
+    with open(os.path.join(pre, "train_singapore.pkl"), "rb") as f:
+        scans = pickle.load(f)
+    n = len(scans)
+    if len(records) != n or len(hiers) != n:
+        raise AssertionError(f"14a: {len(records)} records, {len(hiers)} forwards, "
+                             f"{n} scans")
+    for i, (rec, scan) in enumerate(zip(records, scans)):
+        if sorted(rec) != sorted(f"{p}_{k}" for p in ("probs", "pseudo_label")
+                                 for k in gen.KEYS):
+            raise AssertionError(f"14a scan {i}: keys {sorted(rec)}")
+        kept = rec["probs_2d"] > 0
+        for k in gen.KEYS:
+            probs, labels = rec[f"probs_{k}"], rec[f"pseudo_label_{k}"]
+            if len(probs) != len(scan["points"]) or len(labels) != len(probs) or \
+                    probs.dtype != np.float32 or labels.dtype != np.int64 or \
+                    not np.array_equal(probs > 0, kept) or probs.max() > 1 or \
+                    labels.min() < 0 or labels.max() >= 6 or labels[~kept].any():
+                raise AssertionError(f"14a scan {i} {k}: schema")
+        if kept.sum() < 0.9 * len(kept):
+            raise AssertionError(f"14a scan {i}: {kept.sum()} of {len(kept)} points kept")
+    per_scan = [expected_launches(h) for h in hiers]
+    for name, k in GEN_PER_SCAN.items():
+        if any(e[name] != k for e in per_scan) or launches[name] != k * n:
+            raise AssertionError(f"14a: {name} {launches[name]} launches over {n} "
+                                 f"scans, predicted {k} per scan")
+    dropped = sum(int(lvl.slot_overflow) for h in hiers for lvl in h.levels
+                  if lvl.slot_overflow is not None)
+    log(f"14a generator, bf16, {n} scans of phase 10's train_singapore from `last`: "
+        f"{gen_s:.1f} s, {gen_s * 1e3 / n:.2f} ms per scan (dataset, collate, "
+        f"topology, forward, copies); launches {launches} = per scan "
+        f"{ {k: v for k, v in GEN_PER_SCAN.items() if v} } as predicted; slot hits "
+        f"dropped over all scans {dropped}; schema of every record against its scan")
+
+    # the card's records against the CPU's, fp32, on the split's first two scans
+    with open(os.path.join(pre, "train_two.pkl"), "wb") as f:
+        pickle.dump(scans[:2], f)
+    cfg32 = cli.parse_config(config_path(), paths + [
+        "train.compute_dtype=float32", "dataset.target.TRAIN=[train_two]"])
+    t0 = time.perf_counter()
+    card = gen.generate(cfg32, "last", os.path.join(root, "pselab", "card32.npy"),
+                        device=dev)
+    cpu = gen.generate(cfg32, "last", os.path.join(root, "pselab", "cpu32.npy"),
+                       device="cpu")
+    dataset, dm = gen.target_train_dataset(cfg32)
+    task = gen.restore_task(cfg32, dm, "last", "cpu")
+    worst, compared = 0.0, 0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        gaps = gen.margins(task, dataset, i)
+        for k in gen.KEYS:
+            err = float(np.abs(a[f"probs_{k}"] - b[f"probs_{k}"]).max())
+            worst = max(worst, err)
+            clear = gaps[k] > PSELAB_MARGIN
+            diff = int((a[f"pseudo_label_{k}"] != b[f"pseudo_label_{k}"])[clear].sum())
+            if err > PSELAB_PROB_TOL or diff:
+                raise AssertionError(f"14a card vs CPU scan {i} {k}: probs max|d| "
+                                     f"{err:.3e}, {diff} labels differ of "
+                                     f"{int(clear.sum())} clear points")
+            compared += int(clear.sum())
+    if compared < 1000:
+        raise AssertionError(f"14a card vs CPU: {compared} clear points")
+    log(f"14a card vs CPU, fp32, 2 scans: probs max|d| {worst:.3e} (tol "
+        f"{PSELAB_PROB_TOL:.0e}); labels equal at all {compared} points whose top-two "
+        f"margin exceeds {PSELAB_MARGIN:.0e}; {time.perf_counter() - t0:.1f} s")
+
+    # the self-training run: two steps on the written labels, then the doctor
+    carried, step = [], MM2D3DTask.train_step
+
+    def recording(self, src, trg, *a, **kw):
+        carried.append(trg.pseudo_label_2d is not None
+                       and bool((trg.pseudo_label_2d >= 0).any()))
+        return step(self, src, trg, *a, **kw)
+
+    MM2D3DTask.train_step = recording
+    t0 = time.perf_counter()
+    try:
+        fit, _ = cli.main(["--config", config_path(), *cli_overrides(
+            root, pre, cache, os.path.join(root, "retrain")),
+            f"dataset.target.pselab_paths={out}", "run.limit_train_batches=2",
+            "run.limit_val_batches=1"])
+    finally:
+        MM2D3DTask.train_step = step
+    if fit.global_step != 2 or carried != [True, True]:
+        raise AssertionError(f"14a retrain: step {fit.global_step}, pseudo labels "
+                             f"in the target batches {carried}")
+    doc = doctor.Doctor()
+    doctor.check_pselab(doc, out, pre, "train_singapore")
+    if doc.problems or not doc.checked:
+        raise AssertionError(f"14a doctor: {doc.problems}")
+    log(f"14a self-training: 2 CLI steps on the written labels (each target batch "
+        f"carries them), {time.perf_counter() - t0:.1f} s; doctor check_pselab: "
+        f"{doc.checked} checks passed, no problem")
+    return {"launches": launches, "scans": n, "ms_per_scan": gen_s * 1e3 / n,
+            "dropped": dropped, "card_cpu_prob_err": worst}
+
+
+def run_learning_check(dev) -> dict:
+    """14b: `tools/check_flagship_learning.py` against the committed H100
+    trajectory (exit 0), then with `--mutate` (exit 1); launches per step
+    against the pairs' hierarchies."""
+    import numpy as np
+
+    from mm2d3d_tpu_torch.data.synthetic import make_batch
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.tools import check_flagship_learning as check
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    # the check's own batches (seeds 0-3) and the flagship's topology
+    fs, planes = check.TASK.get("full_scale", 4096), check.TASK.get("num_planes", 7)
+    hiers = [build_topology(make_batch(np.random.RandomState(s), batch_size=check.BATCH,
+                                       **check.SCAN).to(dev), fs, planes)[1]
+             for s in range(4)]
+    pairs = [expected_train_launches(hiers[:2]), expected_train_launches(hiers[2:])]
+    steps = check.STEPS
+    want = {k: sum(pairs[i % 2][k] for i in range(steps)) for k in pairs[0]}
+    out = {}
+    for mutate, rc_want in ((False, 0), (True, 1)):
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        rc = check.main(["--mutate"] if mutate else [])
+        seconds = time.perf_counter() - t0
+        launches = kernels.counts()
+        if rc != rc_want:
+            raise AssertionError(f"14b: check{' --mutate' if mutate else ''} exited "
+                                 f"{rc}, expected {rc_want}")
+        if mutate:
+            for name in ("bandmm", "bandmm_dw"):
+                if not 0 < launches[name] < want[name]:
+                    raise AssertionError(f"14b --mutate: {name} {launches[name]} "
+                                         f"launches vs {want[name]} unmutated")
+        else:
+            check_counts(launches, want, "14b learning check")
+        per_step = {k: v / steps for k, v in launches.items()}
+        out["mutated" if mutate else "check"] = {"per_step": per_step, "s": seconds}
+        log(f"14b check{' --mutate' if mutate else ''}: exit {rc} as required; "
+            f"launches per step {per_step}; {seconds:.1f} s with set-up")
+    return out
+
+
+def check_figure_pixels(path: str, batch, palette) -> int:
+    """The figure of `batch`'s first scan at `path`: panel by panel, the
+    colour at the pixel of every point no other point's marker reaches
+    (the ground truth's palette colour; a palette colour in the prediction
+    panels; a turbo colour in the confidence panel) -> the points checked."""
+    import numpy as np
+    from PIL import Image
+
+    from mm2d3d_tpu_torch.utils import visualize as V
+
+    fig = np.asarray(Image.open(path).convert("RGB"))
+    mask = batch.point_mask[0].cpu().numpy()
+    idx = batch.img_indices[0].cpu().numpy()[mask].astype(np.int64)
+    gt = batch.seg_label[0].cpu().numpy()[mask]
+    h, w = batch.img.shape[1:3]
+    if fig.shape != (5 * (h + V.TITLE_HEIGHT), w, 3):
+        raise AssertionError(f"14c figure {fig.shape}, image {h}x{w}")
+    occ = np.zeros((h + 2, w + 2), np.int64)
+    np.add.at(occ, (idx[:, 0] + 1, idx[:, 1] + 1), 1)
+    near = sum(occ[1 + dr:h + 1 + dr, 1 + dc:w + 1 + dc]
+               for dr in (-1, 0, 1) for dc in (-1, 0, 1))
+    alone = near[idx[:, 0], idx[:, 1]] == 1
+    pts, gt = idx[alone], gt[alone]
+    panels = [fig[r:r + h, c:c + w] for r, c in V.panel_origins(h, 5)]
+    want = V.colorize_labels(gt, palette)
+    got = panels[1][pts[:, 0], pts[:, 1]]
+    if not np.array_equal(got, want):
+        raise AssertionError(f"14c: {int((got != want).any(1).sum())} ground-truth "
+                             "pixels not in their palette colour")
+    colours = {tuple(c) for c in palette}
+    turbo = {tuple(c) for c in V._TURBO}
+    for i, allowed in ((2, colours), (3, colours), (4, turbo)):
+        bad = [tuple(c) for c in panels[i][pts[:, 0], pts[:, 1]] if tuple(c) not in allowed]
+        if bad:
+            raise AssertionError(f"14c panel {i}: {len(bad)} point pixels off palette")
+    return len(pts)
+
+
+def run_figures(dev, root: str) -> dict:
+    """14c: the CLI over phase 10's tree with train_log_images_step and
+    val_log_images_step 1: the PNGs under figures/, their count, the JSONL
+    image lines, and the palette colours at the pixels of points no other
+    marker reaches."""
+    from mm2d3d_tpu_torch import run as cli
+    from mm2d3d_tpu_torch.train.trainer import Trainer
+    from mm2d3d_tpu_torch.utils.visualize import PALETTES
+
+    pre, cache = os.path.join(root, "preprocess"), os.path.join(root, "image_cache")
+    out = os.path.join(root, "figures_run")
+    drawn, log_images = [], Trainer._log_images
+
+    def kept(self, batch, stage):
+        drawn.append((stage, self.global_step, batch))
+        return log_images(self, batch, stage)
+
+    Trainer._log_images = kept
+    t0 = time.perf_counter()
+    try:
+        cli.main(["--config", config_path(), *cli_overrides(root, pre, cache, out),
+                  "train.params.train_log_images_step=1",
+                  "train.params.val_log_images_step=1",
+                  f"run.limit_train_batches={FIG_STEPS}", "run.limit_val_batches=2"])
+    finally:
+        Trainer._log_images = log_images
+    seconds = time.perf_counter() - t0
+    names = ([f"train_{d}_step{s}" for s in range(FIG_STEPS) for d in ("source", "target")]
+             + [f"val_target_step{FIG_STEPS}"] * 2 + [f"test_target_step{FIG_STEPS}"] * 4)
+    if [f"{st}_step{g}" for st, g, _ in drawn] != names:
+        raise AssertionError(f"14c drawn {[(st, g) for st, g, _ in drawn]}")
+    fig_dir = os.path.join(out, "figures")
+    files = sorted(os.listdir(fig_dir))
+    if files != sorted({n + ".png" for n in names}):
+        raise AssertionError(f"14c files {files}")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        images = [ln["image"] for ln in map(json.loads, f) if "image" in ln]
+    want = [{n.rsplit("_step", 1)[0] + "/figure": os.path.join(fig_dir, n + ".png")}
+            for n in names]
+    if images != want:
+        raise AssertionError(f"14c image lines {images}")
+    palette = PALETTES["nuscenes"]
+    # configs/config.yaml's own palette is nuScenes'
+    if not (cli.parse_config(config_path())["train"]["params"]["class_palette"]
+            == palette.tolist()):
+        raise AssertionError("14c: config.yaml's palette is not nuScenes'")
+    stage, step, batch = drawn[0]
+    n = check_figure_pixels(os.path.join(fig_dir, f"{stage}_step{step}.png"), batch,
+                            palette)
+    if n < FIG_MIN_POINTS:
+        raise AssertionError(f"14c: {n} points alone under their markers")
+    log(f"14c figures: {len(files)} PNGs {files}, {len(images)} image lines in "
+        f"metrics.jsonl; {n} isolated points of {stage}_step{step}.png in their "
+        f"colours in all four point panels; CLI run {seconds:.1f} s")
+    return {"files": len(files), "lines": len(images), "points": n, "s": seconds}
+
+
+def run_self_training(dev, root: str) -> dict:
+    t0 = time.perf_counter()
+    log("phase 14a: the pseudo-label generator, then self-training on its labels")
+    gen = generate_pselab(dev, root)
+    log("phase 14b: the flagship learning check, then with --mutate")
+    learn = run_learning_check(dev)
+    log("phase 14c: figures every step and eval batch through the CLI")
+    figs = run_figures(dev, root)
+    seconds = time.perf_counter() - t0
+    log(f"phase 14: {seconds:.1f} s")
+    return {"gen": gen, "learn": learn, "figs": figs, "seconds": seconds}
+
+
 def descendants() -> list:
     """Live processes below this one (children, their children, ...), read
     from /proc; zombies are left out, they end with their parent."""
@@ -2278,6 +2625,15 @@ def main() -> int:
 
 
 def run_phases(dev) -> int:
+    # phase 10's synthetic tree and run stay for phase 14
+    cli_root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        return run_all(dev, cli_root)
+    finally:
+        shutil.rmtree(cli_root, ignore_errors=True)
+
+
+def run_all(dev, cli_root: str) -> int:
     smi = environment()
     build()
 
@@ -2315,7 +2671,7 @@ def run_phases(dev) -> int:
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
     log("phase 10: configs/config.yaml through mm2d3d_tpu_torch.run, full width")
-    cli_launches, cli_ms, cli_peak, cli_s = run_cli(dev)
+    cli_launches, cli_ms, cli_peak, cli_s = run_cli(dev, root=cli_root)
     running = descendants()  # the pools' forkserver and resource tracker
     left = stop_processes()
     if left:
@@ -2350,6 +2706,15 @@ def run_phases(dev) -> int:
     if left:
         raise AssertionError(f"processes still running after phase 13: {left}")
     log(f"phase 13: {len(running)} server processes of the loader pools stopped; "
+        "no process of this script left running")
+
+    log("phase 14: the self-training stage and the training tools")
+    st = run_self_training(dev, cli_root)
+    running = descendants()
+    left = stop_processes()
+    if left:
+        raise AssertionError(f"processes still running after phase 14: {left}")
+    log(f"phase 14: {len(running)} server processes of the loader pools stopped; "
         "no process of this script left running")
 
     from mm2d3d_tpu_torch.ops import kernels
@@ -2398,6 +2763,8 @@ def run_phases(dev) -> int:
                                      c[1].startswith("child slots down L0->L1 tier1")),
                                     None),
             "dp_cli_launches_per_rank": [n[name] for n in dp["launches"]],
+            "generator_launches_per_scan": st["gen"]["launches"][name] / st["gen"]["scans"],
+            "learning_check_launches_per_step": st["learn"]["check"]["per_step"][name],
         })
     log(f"slice: {slice_ms:.2f} ms/batch of {BATCH}, {BATCH * 1e3 / slice_ms:.1f} scans/s")
     log(f"train: {train_ms:.2f} ms/step of 2 x {BATCH}, "
@@ -2417,6 +2784,11 @@ def run_phases(dev) -> int:
             f"threads, card {v['card_build_ms']:.2f}" for p, v in opts["host"].items())
         + f"; options fit, hits dropped per step {opts['options']['dropped_per_step']}"
         + f"; phase 12 {opts['seconds']:.1f} s")
+    log(f"self-training: generator {st['gen']['ms_per_scan']:.2f} ms per scan over "
+        f"{st['gen']['scans']} scans (bf16), card vs CPU fp32 probs max|d| "
+        f"{st['gen']['card_cpu_prob_err']:.3e}; learning check {st['learn']['check']['s']:.1f}"
+        f" s, --mutate {st['learn']['mutated']['s']:.1f} s; {st['figs']['files']} "
+        f"figures; phase 14 {st['seconds']:.1f} s")
     log(f"data parallel CLI, 2 ranks sharing the card (gloo; not a scaling number): "
         + ", ".join(f"{m:.2f} ms/step, peak {g:.2f} GiB" for m, g in zip(dp["ms"], dp["peak"]))
         + f"; phase 13 {dp['seconds']:.1f} s")

@@ -96,7 +96,10 @@ def load_datamodule(
                 split=splits(cfg, key),
                 preprocess_dir=cfg["preprocess_dir"],
                 nuscenes_dir=cfg.get("nuscenes_dir", ""),
-                pselab_paths=cfg.get("pselab_paths"),
+                # the file holds the TRAIN split's labels (the JAX registry
+                # hands it to the eval splits too, which then fail its
+                # length check)
+                pselab_paths=cfg.get("pselab_paths") if train else None,
                 image_cache_dir=cfg.get("image_cache_dir"),
                 output_orig=not train,
                 **kwargs(train, ("merge_classes_style",)),

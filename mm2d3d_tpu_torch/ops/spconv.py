@@ -38,6 +38,14 @@ from .kernels.bandmm import slot_conv_apply
 from .kernels.bandmm_dw import slot_conv_dw
 from .kernels.tapsum import tapsum
 
+# Fault injection for the flagship learning check
+# (`tools/check_flagship_learning.py --mutate`), as in the JAX package: when
+# True, the 3-tier submanifold conv's backward drops the mid and heavy
+# tiers from the input and the weight gradients.  The forward stays exact;
+# the gradients lose those tiers' terms, the fault the check's per-step
+# loss gate must catch.  Never set outside that check.
+_DEBUG_DROP_COMPACT_TIERS_BWD = False
+
 
 def _pad_zero_row(feats: torch.Tensor) -> torch.Tensor:
     return torch.cat([feats, feats.new_zeros((1, feats.shape[-1]))])
@@ -109,15 +117,16 @@ class _SubmSlots3(torch.autograd.Function):
         g_pad = _pad_zero_row(g)
         d_feats = slot_conv_apply(_masked(g, lev.valid), _take(g_pad, lev.slot_src),
                                   lev.slot_tap, w_flip)
-        d_feats = _gather_add_rows(d_feats, lev.slot_invm, slot_conv_apply(
-            None, _take(g_pad, lev.slot_srcm), lev.slot_tapm, w_flip))
-        d_feats = _scatter_add_rows(d_feats, lev.slot_idx, slot_conv_apply(
-            None, _take(g_pad, lev.slot_src2), lev.slot_tap2, w_flip))
-        g_m = _take(g_pad, lev.slot_idxm)  # (Vm, Co)
-        g_h = _take(g_pad, lev.slot_idx)  # (Vh, Co)
-        d_weight = (slot_conv_dw(xc, x1, lev.slot_tap, g)
-                    + slot_conv_dw(None, xm, lev.slot_tapm, g_m)
-                    + slot_conv_dw(None, xh, lev.slot_tap2, g_h))
+        d_weight = slot_conv_dw(xc, x1, lev.slot_tap, g)
+        if not _DEBUG_DROP_COMPACT_TIERS_BWD:
+            d_feats = _gather_add_rows(d_feats, lev.slot_invm, slot_conv_apply(
+                None, _take(g_pad, lev.slot_srcm), lev.slot_tapm, w_flip))
+            d_feats = _scatter_add_rows(d_feats, lev.slot_idx, slot_conv_apply(
+                None, _take(g_pad, lev.slot_src2), lev.slot_tap2, w_flip))
+            g_m = _take(g_pad, lev.slot_idxm)  # (Vm, Co)
+            g_h = _take(g_pad, lev.slot_idx)  # (Vh, Co)
+            d_weight = (d_weight + slot_conv_dw(None, xm, lev.slot_tapm, g_m)
+                        + slot_conv_dw(None, xh, lev.slot_tap2, g_h))
         return d_feats.to(xc.dtype), d_weight.to(weight.dtype), None
 
 

@@ -9,7 +9,11 @@ Usage:
 Seeding, the logger, the datamodule, one optimizer with its schedule per
 branch, the task, checkpoint/resume, fit then test, on the CUDA device
 unless `--device` names another (`--device cpu` runs on the CPU).
-Qualitative figures are not written yet.
+Qualitative figures go to ``<out_dir>/figures`` every
+`train.params.train_log_images_step` steps (2000 unless set; null turns
+them off) and `val_log_images_step` eval batches, in the colours of
+`train.params.class_palette` or, where a config names none, the
+dataset's palette.
 
 Data parallelism is one process per device, started by a launcher:
 
@@ -168,6 +172,19 @@ def build_datamodule(cfg: Dict, num_shards: int = 1, shard_id: int = 0):
     )
 
 
+# the palette of each datamodule's target classes (`utils.visualize.PALETTES`)
+DATASET_PALETTES = {"nuscenes": "nuscenes", "a2d2_semantic_kitti": "a2d2",
+                    "vkitti_semantic_kitti": "virtual_kitti"}
+
+
+def class_palette(cfg: Dict):
+    """The figures' colours: `train.params.class_palette` (a palette name or
+    per-class RGB rows), else the dataset's palette.  The JAX CLI draws no
+    figure where a config names no palette (configs/a2d2.yaml)."""
+    palette = cfg["train"]["params"].get("class_palette")
+    return DATASET_PALETTES.get(cfg["dataset"]["name"]) if palette is None else palette
+
+
 def data_parallel_off(run_cfg: Dict) -> bool:
     # YAML reads an unquoted `off` as false
     return run_cfg.get("data_parallel", "auto") in ("off", False)
@@ -200,14 +217,19 @@ def parse(argv=None):
                         help="torch device to run on (default: cuda)")
     parser.add_argument("overrides", nargs="*", help="group=name or a.b=c")
     args = parser.parse_args(argv)
+    return args, parse_config(args.config, args.overrides)
 
+
+def parse_config(path: str, overrides=()) -> Dict:
+    """The config at `path` with its overrides and the dataset's
+    `train_overrides` merged into `train`."""
     from .utils.config import _deep_merge, load_config
 
-    cfg = load_config(args.config, args.overrides)
+    cfg = load_config(path, list(overrides))
     # dataset-specific train overrides (e.g. lambda_xm for vkitti)
     if "train_overrides" in cfg:
         cfg["train"] = _deep_merge(cfg["train"], cfg.pop("train_overrides"))
-    return args, cfg
+    return cfg
 
 
 def main(argv=None):
@@ -258,9 +280,6 @@ def main(argv=None):
     task = build_task(cfg, dm.num_classes, device=device, group=group)
     logger.log_hyperparams({"models": task.model_info})
     params = cfg["train"]["params"]
-    if params.get("val_log_images_step") or params.get("train_log_images_step"):
-        print("note: mm2d3d_tpu_torch does not write qualitative figures yet; "
-              "*_log_images_step is ignored")
 
     from .train.trainer import Trainer
 
@@ -283,6 +302,10 @@ def main(argv=None):
         strict_eval_overflow=cfg["train"].get("strict_eval_overflow", False),
         prefetch_batches=cfg["train"].get("prefetch_batches", 2),
         host_topology=cfg["train"].get("host_topology", False),
+        train_log_images_step=params.get("train_log_images_step", 2000),
+        val_log_images_step=params.get("val_log_images_step"),
+        class_palette=class_palette(cfg),
+        viz_dir=osp.join(out_dir, "figures"),
     )
     try:
         trainer.init_or_resume(resume=run_cfg.get("resume", False))

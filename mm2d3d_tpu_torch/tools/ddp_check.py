@@ -253,7 +253,8 @@ def run_steps(inputs: str, out_dir: str, device: str) -> None:
 
 def run_cli(prefix: str, argv) -> None:
     """`run.main(argv)` in this rank, with every topology the task builds
-    kept (kind "train" or "eval") and every eval loop's matrices."""
+    kept (kind "train", "eval", or "viz" for a figure's forward, which rank
+    0 alone runs) and every eval loop's matrices."""
     from .. import run as cli
     from ..data.loader import stop_worker_server
     from ..ops import kernels
@@ -262,18 +263,19 @@ def run_cli(prefix: str, argv) -> None:
     from .kernel_cases import expected_launches, expected_train_launches
     from .train_repro import snapshot
 
-    topologies, ends, evals = [], [], []
-    build, step, evaluate = (MM2D3DTask.build_topology, MM2D3DTask.train_step,
-                             trainer_mod.evaluate)
+    topologies, ends, evals, in_viz = [], [], [], []
+    build, step, evaluate, viz = (MM2D3DTask.build_topology, MM2D3DTask.train_step,
+                                  trainer_mod.evaluate, MM2D3DTask.viz_forward)
 
     def kept_build(self, batch):
         topo = build(self, batch)
         hier = topo[1]
-        kind = "eval" if torch.is_inference_mode_enabled() else "train"
+        kind = ("viz" if in_viz else
+                "eval" if torch.is_inference_mode_enabled() else "train")
         topologies.append({
             "kind": kind,
-            "expected": (expected_launches(hier) if kind == "eval"
-                         else expected_train_launches([hier])),
+            "expected": (expected_train_launches([hier]) if kind == "train"
+                         else expected_launches(hier)),
             "levels_at_capacity": sum(int(lvl.num_voxels) >= lvl.capacity
                                       for lvl in hier.levels),
             "slot_overflow": int(slot_overflow(hier) + 0)})
@@ -286,18 +288,27 @@ def run_cli(prefix: str, argv) -> None:
         ends.append(time.perf_counter())
         return logs
 
+    def kept_viz(self, *a, **kw):
+        in_viz.append(True)
+        try:
+            return viz(self, *a, **kw)
+        finally:
+            in_viz.pop()
+
     def kept_evaluate(task, batches, limit=None):
         metrics, logs, dropped = evaluate(task, batches, limit)
         evals.append({k: v.cpu() for k, v in dataclasses.asdict(metrics).items()})
         return metrics, logs, dropped
 
     MM2D3DTask.build_topology, MM2D3DTask.train_step = kept_build, timed_step
+    MM2D3DTask.viz_forward = kept_viz
     trainer_mod.evaluate = kept_evaluate
     kernels.reset_counts()
     try:
         trainer, results = cli.main(list(argv))
     finally:
         MM2D3DTask.build_topology, MM2D3DTask.train_step = build, step
+        MM2D3DTask.viz_forward = viz
         trainer_mod.evaluate = evaluate
     dev = trainer.task.device
     rank = int(os.environ["RANK"])

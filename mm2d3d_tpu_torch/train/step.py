@@ -6,9 +6,11 @@ the target batch in train mode, weighted CE on the source, cross-modal KL on
 both domains, the backward through the sparse-conv adjoints, and one
 optimizer step per branch.  `forward` is the fused 2D+3D forward with the
 softmax ensemble that `__graft_entry__.entry` returns; `eval_step` adds the
-eval losses and the 2D / 3D / ensemble confusion-matrix updates.  Both run
-in eval mode under `torch.inference_mode()`.  Log keys are the JAX
-package's.
+eval losses and the 2D / 3D / ensemble confusion-matrix updates;
+`viz_forward` gives the qualitative figures' predictions and
+`point_predictions` the pseudo-label generator's.  All four run in eval
+mode under `torch.inference_mode()`, through the task's own topology (its
+slot profile).  Log keys are the JAX package's.
 
 Every entry point runs on the CUDA device unless the caller passes
 `device="cpu"`; without a CUDA device it raises instead of carrying on on
@@ -230,7 +232,7 @@ class MM2D3DTask:
         flat2 = p2["seg_logit"].reshape(-1, self.num_classes).float()
         flat3 = p3["seg_logit"].float()
         ens = (torch.softmax(flat2, -1) + torch.softmax(flat3, -1)) / 2
-        return topo, p2, flat2, flat3, ens, labels, mask
+        return topo, p2, p3, flat2, flat3, ens, labels, mask
 
     @torch.inference_mode()
     def forward(self, batch: PointBatch, topo=None) -> Dict[str, torch.Tensor]:
@@ -238,9 +240,40 @@ class MM2D3DTask:
         (B*N, nc), "ensemble": (B*N, nc) mean of the two softmaxes}.
         `topo` is a precomputed (grid, hierarchy) of this batch, or None to
         build the default one."""
-        _, p2, flat2, flat3, ens, _, _ = self._forward(batch, topo)
+        _, p2, _, flat2, flat3, ens, _, _ = self._forward(batch, topo)
         return {"seg_logit_2d": p2["seg_logit"], "seg_logit_3d": flat3,
                 "ensemble": ens}
+
+    @torch.inference_mode()
+    def viz_forward(self, batch: PointBatch, topo=None) -> Dict[str, torch.Tensor]:
+        """The qualitative figure's predictions (JAX `viz_forward`):
+        {"pred_2d_dense": (B, H, W) argmax of the dense 2D logits,
+        "pred_2d_points", "pred_3d_points": (B, N) point argmaxes,
+        "confidence": (B, N) the 3D branch's gate}."""
+        _, p2, p3, flat2, flat3, _, _, _ = self._forward(batch, topo)
+        b, n = batch.point_mask.shape
+        return {"pred_2d_dense": p2["seg_logit_2d"].argmax(-1),
+                "pred_2d_points": flat2.argmax(-1).reshape(b, n),
+                "pred_3d_points": flat3.argmax(-1).reshape(b, n),
+                "confidence": p3["confidence"].float().reshape(b, n)}
+
+    @torch.inference_mode()
+    def point_predictions(self, batch: PointBatch,
+                          topo=None) -> Dict[str, torch.Tensor]:
+        """Per point of the 2D and 3D softmaxes and their mean, the top
+        probability and its class (the pseudo-label schema's keys,
+        `probs_{2d,3d,ensemble}` and `pseudo_label_{...}`, each (B, N)),
+        and "slot_overflow": the hits the slot tables dropped."""
+        (_, hier), _, _, flat2, flat3, ens, _, _ = self._forward(batch, topo)
+        b, n = batch.point_mask.shape
+        out = {}
+        for key, probs in (("2d", torch.softmax(flat2, -1)),
+                           ("3d", torch.softmax(flat3, -1)), ("ensemble", ens)):
+            top, label = probs.max(-1)
+            out[f"probs_{key}"] = top.reshape(b, n)
+            out[f"pseudo_label_{key}"] = label.reshape(b, n)
+        out["slot_overflow"] = slot_overflow(hier) + torch.zeros((), device=flat2.device)
+        return out
 
     def _seg_loss(self, logits, labels, mask):
         """The config's composed `losses:` list when a LossComposer is
@@ -379,7 +412,7 @@ class MM2D3DTask:
         precomputed topology of the batch, or None to build the default one."""
         if metrics is None:
             metrics = EvalMetrics.create(self.num_classes, self.device)
-        (grid, hier), _, flat2, flat3, ens, labels, mask = self._forward(batch, topo)
+        (grid, hier), _, _, flat2, flat3, ens, labels, mask = self._forward(batch, topo)
         new = EvalMetrics(
             cm_2d=confusion_matrix_update(metrics.cm_2d, flat2.argmax(-1), labels, mask),
             cm_3d=confusion_matrix_update(metrics.cm_3d, flat3.argmax(-1), labels, mask),

@@ -20,7 +20,14 @@ fit / validate / test loop, checkpoints and resume.
   rank 0's state replicated at the start, each eval batch's metrics and
   logs reduced over the ranks, so every rank reports the same numbers and
   takes the same checkpoint decisions; rank 0 writes the checkpoints, and
-  every rank waits for each one.
+  every rank waits for each one;
+- qualitative figures of the first scan of a batch (`_log_images`, the
+  5-panel figure of `utils.visualize`) every ``train_log_images_step``
+  steps for both train batches and every ``val_log_images_step`` eval
+  batches, written to ``viz_dir`` as ``<stage>_step<global step>.png`` and
+  handed to the logger's `log_image`; with a class palette and a
+  directory only, and on rank 0 only (the eval-mode forward has no
+  collective, so the other ranks skip it).
 
 The task holds its state in its modules and optimizers
 (`train.step.MM2D3DTask`); the dropout generator is this trainer's, on the
@@ -36,6 +43,7 @@ import os.path as osp
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -43,7 +51,8 @@ from ..data import host_topology as HT
 from ..data.loader import max_size_cycle, prefetch_topology_pairs, prefetched
 from ..parallel import mesh
 from ..utils.logging import rank_zero
-from .batch import PointBatch
+from ..utils.visualize import PALETTES, draw_points_image_labels_with_confidence
+from .batch import PointBatch, prepare_device_batch
 from .metrics import iou_per_class
 from .step import EvalMetrics, MM2D3DTask
 
@@ -96,8 +105,11 @@ class CheckpointIO:
             json.dump(meta, f)
 
     def restore(self, name: str, task: MM2D3DTask,
-                generator: torch.Generator) -> Dict:
-        """Load checkpoint `name` into `task` and `generator` -> its meta."""
+                generator: Optional[torch.Generator]) -> Dict:
+        """Load checkpoint `name` into `task` and `generator` -> its meta.
+        With `generator` None the dropout stream is not restored (an
+        inference run, which may sit on another device than the training
+        run's generator)."""
         state = torch.load(self._path(name), map_location=task.device,
                            weights_only=True)
         task.model2d.load_state_dict(state["model2d"])
@@ -107,7 +119,8 @@ class CheckpointIO:
         task.sched2d.load_state_dict(state["sched2d"])
         task.sched3d.load_state_dict(state["sched3d"])
         task.step = state["step"]
-        generator.set_state(state["generator"].cpu())
+        if generator is not None:
+            generator.set_state(state["generator"].cpu())
         meta_path = osp.join(self.dir, name + ".meta.json")
         if not osp.exists(meta_path):
             return {}
@@ -139,6 +152,10 @@ class Trainer:
         strict_eval_overflow: bool = False,
         prefetch_batches: int = 2,  # host-to-device pairs in flight (0: none)
         host_topology: bool = False,  # train topologies built on the CPU
+        train_log_images_step: Optional[int] = None,
+        val_log_images_step: Optional[int] = None,
+        class_palette=None,  # a `utils.visualize.PALETTES` name or (C, 3) RGB
+        viz_dir: Optional[str] = None,
     ):
         self.task = task
         self.source_loader = source_loader
@@ -161,6 +178,13 @@ class Trainer:
         self.strict_eval_points = strict_eval_points
         self.strict_eval_overflow = strict_eval_overflow
         self.prefetch_batches = prefetch_batches
+        self.train_log_images_step = train_log_images_step
+        self.val_log_images_step = val_log_images_step
+        if isinstance(class_palette, str):
+            class_palette = PALETTES[class_palette]
+        self.class_palette = (None if class_palette is None
+                              else np.asarray(class_palette, np.uint8))
+        self.viz_dir = viz_dir
         self._rank0 = rank_zero()
         if host_topology and task.group is not None:
             # as the JAX trainer does under a mesh: each rank builds its
@@ -248,6 +272,10 @@ class Trainer:
                 items = prefetched(items, self.prefetch_batches)
             try:
                 for src, trg, *topos in items:
+                    if (self.train_log_images_step
+                            and self.global_step % self.train_log_images_step == 0):
+                        self._log_images(src, "train_source")
+                        self._log_images(trg, "train_target")
                     logs = self.task.train_step(src, trg, self.generator, *topos)
                     self.global_step += 1
                     n += 1
@@ -313,11 +341,44 @@ class Trainer:
         if self.logger is not None:
             self.logger.log_metrics({**host, **self.task.current_lrs(step)}, step)
 
+    def _log_images(self, batch: PointBatch, stage: str) -> None:
+        """The 5-panel figure of the batch's first scan (the JAX trainer's
+        `_log_images`): the eval-mode predictions of `viz_forward` over the
+        image the network consumed (the device-jittered one, for a wire
+        batch with `jitter_params`)."""
+        if self.class_palette is None or self.viz_dir is None or not self._rank0:
+            return
+        out = {k: v[0].cpu().numpy() for k, v in self.task.viz_forward(batch).items()}
+        mask = batch.point_mask[0].cpu().numpy()
+        path = osp.join(self.viz_dir, f"{stage}_step{self.global_step}.png")
+        draw_points_image_labels_with_confidence(
+            prepare_device_batch(batch).img[0].cpu().numpy(),
+            out["pred_2d_dense"],
+            out["pred_2d_points"][mask],
+            out["pred_3d_points"][mask],
+            out["confidence"][mask],
+            batch.seg_label[0].cpu().numpy()[mask],
+            batch.img_indices[0].cpu().numpy()[mask],
+            color_palette=self.class_palette,
+            out_path=path,
+        )
+        if self.logger is not None:
+            self.logger.log_image(f"{stage}/figure", path, self.global_step)
+
     # -- eval ----------------------------------------------------------------
+
+    def _eval_batches(self, loader, stage: str):
+        """The loader's batches on the device, a figure of every
+        ``val_log_images_step``-th one first."""
+        for i, batch in enumerate(loader):
+            batch = self._to_device(batch)
+            if self.val_log_images_step and i % self.val_log_images_step == 0:
+                self._log_images(batch, stage.replace("/", "_"))
+            yield batch
 
     def _run_eval(self, loader, stage: str) -> Dict[str, float]:
         metrics, losses, points_dropped = evaluate(
-            self.task, map(self._to_device, loader), self.limit_val_batches)
+            self.task, self._eval_batches(loader, stage), self.limit_val_batches)
 
         if points_dropped:
             msg = (

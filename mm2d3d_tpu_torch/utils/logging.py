@@ -1,5 +1,7 @@
 """Experiment logging (port of `mm2d3d_tpu/utils/logging.py`): stdout and a
-JSONL file, behind one `LoggerCollection`.
+JSONL file, behind one `LoggerCollection`; scalars, hyperparameters and
+qualitative figures (`log_image`: a PNG's path, one line on stdout,
+``{"step", "image": {name: path}}`` in the JSONL file).
 
 W&B and MLflow are not ported: a `logging:` config that asks for either
 raises.  Run ids are written to ``run_id.yaml`` only by those trackers, so
@@ -33,6 +35,10 @@ class BaseLogger:
     def log_hyperparams(self, params: Dict[str, Any]):
         pass
 
+    def log_image(self, name: str, path: str, step: int):
+        """A qualitative figure, a PNG on disk."""
+        pass
+
     def finish(self):
         pass
 
@@ -52,6 +58,9 @@ class StdoutLogger(BaseLogger):
     def log_hyperparams(self, params: Dict[str, Any]):
         print("hyperparams:", json.dumps(params, default=str)[:2000], flush=True)
 
+    def log_image(self, name: str, path: str, step: int):
+        print(f"figure {name} @ step {step}: {path}", flush=True)
+
 
 class JsonlLogger(BaseLogger):
     """Appends metrics to a JSONL file, the machine-readable sink."""
@@ -66,6 +75,10 @@ class JsonlLogger(BaseLogger):
         with open(self.path, "a") as f:
             f.write(json.dumps({"step": step, **metrics}) + "\n")
 
+    def log_image(self, name: str, path: str, step: int):
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"step": step, "image": {name: path}}) + "\n")
+
 
 class LoggerCollection(BaseLogger):
     def __init__(self, loggers: List[BaseLogger]):
@@ -79,6 +92,10 @@ class LoggerCollection(BaseLogger):
     def log_hyperparams(self, params):
         for lg in self.loggers:
             lg.log_hyperparams(params)
+
+    def log_image(self, name, path, step):
+        for lg in self.loggers:
+            lg.log_image(name, path, step)
 
     def finish(self):
         for lg in self.loggers:

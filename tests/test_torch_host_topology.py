@@ -15,6 +15,10 @@ the JAX package's `build_topology_host`, on the CPU.
 - Every table the JAX package's host build makes equal, bit for bit, to the
   port's, the slot profile passed to both (with the port's capacities:
   the JAX host build takes the default profile's when it is given none).
+  That build is a private copy of the JAX package's host library, made
+  from the same sources in a temporary directory: the JAX loader builds
+  its shared copy in place without a lock between processes, and a test
+  process that loads it half-written keeps the failure for its lifetime.
 - An fp32 train step with host-built topologies bit-equal to one with
   device-built ones, and a `Trainer(host_topology=True)` fit bit-equal to
   one with `host_topology=False`; the CLI with `train.host_topology: true`
@@ -22,7 +26,10 @@ the JAX package's `build_topology_host`, on the CPU.
   builds are safe.
 """
 
+import contextlib
 import dataclasses
+import os.path as osp
+import shutil
 import subprocess
 import sys
 
@@ -46,6 +53,7 @@ from mm2d3d_tpu_torch.train.batch import build_topology, default_capacities
 pytestmark = pytest.mark.usefixtures("two_threads")
 
 FS, LEVELS = 256, 4
+REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SMALL = dict(full_scale=256, num_planes=3, m=8)
 BATCH = dict(batch_size=2, height=32, width=48, n_points=512, full_scale=FS)
 
@@ -134,13 +142,64 @@ def test_host_topology_under_overflow(profile):
             assert torch.equal(getattr(a, name), getattr(b, name)), name
 
 
+@contextlib.contextmanager
+def private_jax_host_lib(directory):
+    """The JAX package's host library built from its sources
+    (csrc/host_ops.cpp, csrc/Makefile) in `directory` and loaded from there:
+    `mm2d3d_tpu.native`'s library path, loaded library and latched build
+    failure point at the private copy inside the block and are restored
+    after it.  The shared copy under csrc/ is built in place by whichever
+    process asks first, with no lock between processes, so a test worker
+    can load it half-written and latch `_build_failed` for its lifetime."""
+    from mm2d3d_tpu import native as native_jax
+
+    for name in ("host_ops.cpp", "Makefile"):
+        shutil.copy(osp.join(REPO, "csrc", name), osp.join(directory, name))
+    subprocess.run(["make", "-C", str(directory)], check=True, capture_output=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native_jax, "_LIB_PATH", osp.join(directory, "libmm2d3d_host.so"))
+        mp.setattr(native_jax, "_lib", None)
+        mp.setattr(native_jax, "_build_failed", False)
+        yield native_jax
+
+
+@pytest.fixture(scope="module")
+def jax_host_lib(tmp_path_factory):
+    with private_jax_host_lib(tmp_path_factory.mktemp("jax_host_lib")) as native_jax:
+        yield native_jax
+
+
+def test_private_jax_host_lib_survives_a_broken_shared_copy(tmp_path):
+    """The failure the private copy prevents: a truncated library at the
+    shared path (as a concurrent in-place build leaves it) makes the JAX
+    loader latch `_build_failed`, and it then refuses a whole library at
+    that path too.  Inside `private_jax_host_lib` the library loads; after
+    it, the module's state is back as it was."""
+    from mm2d3d_tpu import native as native_jax
+
+    whole = tmp_path / "whole"
+    whole.mkdir()
+    shared = tmp_path / "libmm2d3d_host.so"
+    shared.write_bytes(b"\x7fELF" + bytes(36))  # the first bytes of a build
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native_jax, "_LIB_PATH", str(shared))
+        mp.setattr(native_jax, "_lib", None)
+        mp.setattr(native_jax, "_build_failed", False)
+        assert not native_jax.available() and native_jax._build_failed
+        with private_jax_host_lib(whole) as private:
+            assert private.available()
+            assert private._LIB_PATH == str(whole / "libmm2d3d_host.so")
+        assert native_jax._LIB_PATH == str(shared) and native_jax._build_failed
+        shutil.copy(whole / "libmm2d3d_host.so", shared)  # latched: still refused
+        assert not native_jax.available()
+
+
 @pytest.mark.parametrize("child", [None, "default"])
 @pytest.mark.parametrize("profile", ["default", "dense"])
-def test_host_topology_equals_jax_host_build(profile, child):
-    from mm2d3d_tpu import native as native_jax
+def test_host_topology_equals_jax_host_build(profile, child, jax_host_lib):
     from mm2d3d_tpu.data.host_topology import build_topology_host as host_jax
 
-    assert native_jax.available()
+    assert jax_host_lib.available()
     batch = _batch("random", seed=5)
     b, n = batch.coords.shape[:2]
     coords = batch.coords.reshape(-1, 3).numpy()

@@ -4,8 +4,8 @@
 tests/test_torch_trainer.py (`workspace`, `--device cpu`, global batch 2).
 
 - Fit, validation and test: both ranks end with the same state, bit for
-  bit, and the same results; rank 0 alone writes the one checkpoint set
-  and the metrics; the validation's confusion matrices equal one
+  bit, and the same results; rank 0 alone writes the one checkpoint set,
+  the metrics and the figures (and runs the figures' forward); the validation's confusion matrices equal one
   process's eval of the checkpoint over the same scans in the same
   batches.
 - `run=test` with resume: both ranks restore the checkpoint, bit for bit,
@@ -64,6 +64,14 @@ def test_cli_data_parallel_fit_then_resumed_test(workspace):
     assert [ln["step"] for ln in lines if "train/loss_total" in ln] == [1, 2]
     saved = torch.load(out / "ckpts" / "last.pt", map_location="cpu", weights_only=True)
     assert ddp_check.digest(saved) == fit[0]["state"]
+    # the figures (step 0's two batches, every val and test batch): rank 0
+    # alone runs their forward and writes them
+    assert [t["kind"] for t in fit[1]["topologies"]].count("viz") == 0
+    assert [t["kind"] for t in fit[0]["topologies"]].count("viz") == 8
+    assert len([ln for ln in lines if "image" in ln]) == 8
+    assert sorted(p.name for p in (out / "figures").iterdir()) == [
+        "test_target_step2.png", "train_source_step0.png", "train_target_step0.png",
+        "val_target_step2.png"]
 
     # validation: one process over the same scans, in the ranks' batches
     cfg = str(workspace / "configs" / "config.yaml")

@@ -339,7 +339,12 @@ def test_overflow_warnings_for_injected_values(nusc, tmp_path, capsys, path):
 
 @pytest.fixture
 def workspace(tmp_path):
-    """The tiny config tree and fake data of tests/test_cli.py."""
+    return write_workspace(tmp_path)
+
+
+def write_workspace(tmp_path):
+    """The tiny config tree and fake data of tests/test_cli.py under
+    `tmp_path` (a pathlib.Path) -> `tmp_path`."""
     root = tmp_path / "data"
     pre = write_nuscenes(str(root), np.random.RandomState(2), scans_per_split=4)
     (tmp_path / "configs" / "datasets").mkdir(parents=True)
@@ -416,7 +421,14 @@ def test_cli_fast_dev_run_then_test_with_resume(workspace, capsys):
     lines = [json.loads(ln) for ln in open(out / "metrics.jsonl")]
     assert [ln["step"] for ln in lines if "train/loss_total" in ln] == [1, 2]
     assert {"test/target/iou", "test/target/iou_3d", "test/target/iou_avg"} <= set(results)
-    assert "does not write qualitative figures" in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert "is ignored" not in printed  # the figure keys are honoured now
+    # train_log_images_step 2000 (the CLI's default) draws step 0; the
+    # workspace's val_log_images_step 1 every val and test batch, in the
+    # dataset's palette (the config names none)
+    assert sorted(p.name for p in (out / "figures").iterdir()) == [
+        "test_target_step2.png", "train_source_step0.png", "train_target_step0.png",
+        "val_target_step2.png"]
 
     tester, again = main(["--config", cfg, "--device", "cpu", "run=test",
                           "run.batch_size=2", "run.resume=true"])
