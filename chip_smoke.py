@@ -49,7 +49,14 @@ predicted, the card's fp32 records against the CPU's on two scans), two
 CLI steps on the written labels and the doctor's `check_pselab` on them;
 the flagship learning check against the committed H100 trajectory (exit
 0), then with its fault injected (exit 1); and the CLI writing a figure
-every step and eval batch, held pixel by pixel to the palette.  Prints,
+every step and eval batch, held pixel by pixel to the palette.  Phase 15
+drives batches past the dense neighbour map, where the coarsest level's
+table comes from the key search: the topologies of 17, 24 and 32 scans
+card against CPU, the bf16 eval forward at batch 32 and a bf16 train step
+at 24 per domain (launches as predicted, both monitors equal to the
+tables' counts); then the loader's C++ image ops bit-equal to numpy on the
+card's host, and `tools/bench_loader.py` (scans/s per image path, the
+stage split of a train step at batch 16).  Prints,
 in its last lines, the card (nvidia-smi name and power
 limit), one JSON line of kernel results, and one JSON line
 {"ok": true, "device": {...}}.  Any failed phase raises, and
@@ -2568,6 +2575,244 @@ def run_self_training(dev, root: str) -> dict:
     return {"gen": gen, "learn": learn, "figs": figs, "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# phase 15: batches past the dense neighbour map; the loader's C++ image ops
+# --------------------------------------------------------------------------
+
+SEARCH_BATCHES = (17, 24, 32)  # scans per topology: 64^3 * B > 4M cells
+SEARCH_EVAL_BATCH = 32
+SEARCH_TRAIN_BATCH = 24
+# (in_w, in_h) -> (out_w, out_h): the shipped configs' resizes, a SemanticKITTI
+# frame to A2D2's size, VirtualKITTI halved, an upscale
+RESIZES = [((1600, 900), (400, 225)), ((1920, 1208), (480, 302)),
+           ((1241, 376), (480, 302)), ((1242, 375), (621, 188)),
+           ((300, 200), (480, 302))]
+LOADER_BENCH = dict(scans=32, points=12000, batch=16, workers=0, epochs=1)
+
+
+def monitors(hier) -> tuple:
+    """The tables' own counts behind both overflow monitors: (levels at
+    capacity, slot hits dropped)."""
+    from mm2d3d_tpu_torch.train.step import slot_overflow
+
+    at_cap = sum(int(lev.num_voxels) >= lev.capacity for lev in hier.levels)
+    return at_cap, int(slot_overflow(hier))
+
+
+def check_search_topologies(dev) -> dict:
+    """15a, first half: the flagship topology of 17, 24 and 32 scans, where
+    the coarsest level (fs 64) is past the dense map's 4M cells and its
+    table comes from the key search, built on the card and on the CPU:
+    every table identical.  -> {B: card build ms}."""
+    from mm2d3d_tpu_torch.ops import hierarchy as H
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    out = {}
+    for b in SEARCH_BATCHES:
+        if 64 ** 3 * b <= H._DENSE_NBR_MAX_ENTRIES:
+            raise AssertionError(f"batch {b} would take the dense map")
+        batch = flagship_batch(100 + b, b, "cpu")
+        n = compare_topology(batch, dev)
+        on_card = batch.to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, hier = build_topology(on_card, 4096, 7)
+        torch.cuda.synchronize()
+        out[b] = (time.perf_counter() - t0) * 1e3
+        at_cap, dropped = monitors(hier)
+        log(f"15a topology of {b} scans: {n} tables identical card vs CPU; card build "
+            f"{out[b]:.2f} ms; levels at capacity {at_cap}, slot hits dropped {dropped}")
+    return out
+
+
+def check_finite(logs: dict, what: str) -> None:
+    """Finite logs; the monitors are held to the tables, not to 0 (the
+    default slot plan drops hits at some batch sizes)."""
+    for name, t in logs.items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{what}: non-finite {name}")
+
+
+def check_monitor_logs(logged: dict, hiers, prefix: str, what: str) -> tuple:
+    """The logged monitors equal to the tables' counts -> (at_cap, dropped)."""
+    at_cap = sum(monitors(h)[0] for h in hiers)
+    dropped = sum(monitors(h)[1] for h in hiers)
+    got = float(logged[f"{prefix}nbr_slot_overflow"])
+    if got != dropped:
+        raise AssertionError(f"{what}: nbr_slot_overflow {got}, tables {dropped}")
+    key = f"{prefix}voxel_overflow_levels"
+    if key in logged and float(logged[key]) != at_cap:
+        raise AssertionError(f"{what}: voxel_overflow_levels {float(logged[key])}, "
+                             f"tables {at_cap}")
+    return at_cap, dropped
+
+
+def run_search_eval(dev) -> dict:
+    """15a, second half: the bf16 eval forward at batch 32 through
+    `eval_step` and `forward`: launches as the hierarchies predict, both
+    monitors equal to the tables' counts, ms per batch, peak memory."""
+    from mm2d3d_tpu_torch.flagship import flagship_task
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    from mm2d3d_tpu_torch.tools.kernel_cases import FLAGSHIP_BATCH
+
+    b, n_points = SEARCH_EVAL_BATCH, FLAGSHIP_BATCH["n_points"]
+    task = flagship_task(device=dev)
+    task.init_params(torch.Generator().manual_seed(0))
+    batches = [flagship_batch(s, b, dev) for s in (40, 41)]
+    task.eval_step(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    results = [(task.eval_step(x), task.forward(x)) for x in batches]
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hiers = [build_topology(x, 4096, 7)[1] for x in batches]
+    expected = {k: 0 for k in launches}
+    mons = []
+    for ((metrics, logs), fwd), hier in zip(results, hiers):
+        for k, n in expected_launches(hier).items():
+            expected[k] += 2 * n  # eval_step + forward
+        check_finite({**logs, **fwd}, "15a")
+        if fwd["seg_logit_2d"].shape != (b, n_points, 6) or \
+                fwd["seg_logit_3d"].shape != (b * n_points, 6):
+            raise AssertionError("15a: unexpected output shapes")
+        if float((fwd["ensemble"].sum(-1) - 1).abs().max()) > 1e-3:
+            raise AssertionError("15a: ensemble rows do not sum to 1")
+        if int(metrics.cm_avg.sum()) <= 0:
+            raise AssertionError("15a: empty confusion matrix")
+        mons.append(check_monitor_logs(logs, [hier], "", "15a eval"))
+    check_counts(launches, expected, "15a eval forwards")
+    samples = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(2):
+            for x in batches:
+                out = task.forward(x)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) / 4)
+    del out
+    ms = statistics.median(samples) * 1e3
+    per_forward = {k: v // 4 for k, v in launches.items()}
+    log(f"15a eval forward bf16 batch {b}: {ms:.2f} ms/batch (median of 3 x 4, band "
+        f"{min(samples) * 1e3:.2f}-{max(samples) * 1e3:.2f}), {b * 1e3 / ms:.1f} "
+        f"scans/s; peak {peak:.2f} GiB; launches over 4 forwards {launches} (= "
+        f"expected_launches); monitors (levels at capacity, hits dropped) per batch "
+        f"{mons}, equal to the tables")
+    return {"ms": ms, "peak": peak, "launches": launches, "per_forward": per_forward,
+            "monitors": mons}
+
+
+def run_search_train(dev) -> dict:
+    """15b: one bf16 flagship train step at 24 scans per domain: launches as
+    the two hierarchies predict, both monitors equal to the tables' counts,
+    ms per step, peak memory."""
+    from mm2d3d_tpu_torch.flagship import flagship_task
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    b = SEARCH_TRAIN_BATCH
+    task = flagship_task(device=dev)
+    task.init_params(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src, trg = flagship_batch(50, b, dev), flagship_batch(51, b, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    check_finite(task.train_step(src, trg, gen), "15b warm-up")
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    logs = task.train_step(src, trg, gen)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    check_finite(logs, "15b")
+    hiers = [build_topology(x, 4096, 7)[1] for x in (src, trg)]
+    check_counts(launches, expected_train_launches(hiers), "15b train step")
+    mon = check_monitor_logs({k: float(v) for k, v in logs.items()}, hiers, "train/",
+                             "15b train step")
+    samples = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logs = task.train_step(src, trg, gen)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    check_finite(logs, "15b")
+    ms = statistics.median(samples) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"15b train step bf16 batch {b} per domain: {ms:.2f} ms/step (median of 3, "
+        f"band {min(samples) * 1e3:.2f}-{max(samples) * 1e3:.2f}), "
+        f"{2 * b * 1e3 / ms:.1f} scans/s; peak {peak:.2f} GiB; launches {launches} "
+        f"(= expected_train_launches); monitors (levels at capacity, hits dropped) "
+        f"{mon}, equal to the tables; loss {float(logs['train/loss_total']):.4f}")
+    return {"ms": ms, "peak": peak, "launches": launches, "monitors": mon}
+
+
+def check_host_image_ops() -> int:
+    """15c, first half: the C++ resize and maps bit-equal to the numpy path
+    on this host (its own `-march=native` build), in numpy's memory order.
+    -> the number of cases."""
+    import numpy as np
+
+    from mm2d3d_tpu_torch import native
+    from mm2d3d_tpu_torch.data import augment as A
+
+    def numpy_path(fn, *args):
+        os.environ["MM2D3D_HOST_NATIVE"] = "0"
+        try:
+            return fn(*args)
+        finally:
+            os.environ["MM2D3D_HOST_NATIVE"] = "1"
+
+    native.lib()  # this host's build, before the timed calls
+    r = np.random.RandomState(15)
+    t_native = t_numpy = 0.0
+    for (iw, ih), (ow, oh) in RESIZES:
+        img = r.randint(0, 256, size=(ih, iw, 3), dtype=np.uint8)
+        t0 = time.perf_counter()
+        out = native.bilinear_resize_u8(img, (oh, ow))
+        t1 = time.perf_counter()
+        ref = numpy_path(A.bilinear_resize, img, (oh, ow))
+        t_native, t_numpy = t_native + t1 - t0, t_numpy + time.perf_counter() - t1
+        if not (np.array_equal(out, ref) and out.strides == ref.strides):
+            raise AssertionError(f"15c: resize {(iw, ih)} -> {(ow, oh)} differs from "
+                                 "numpy")
+    for (h, w), n in (((225, 400), 6000), ((302, 480), 9000)):
+        idx = np.stack([r.randint(0, h, n), r.randint(0, w, n)], 1)
+        idx[: n // 3] = idx[n // 3: 2 * (n // 3)]  # pixels hit twice
+        depths, labels = r.uniform(1, 80, n), r.randint(0, 17, n)
+        got = native.depth_label_maps(idx, depths, labels, (h, w))
+        want = numpy_path(A.build_depth_and_label_maps, idx, depths, labels, (h, w))
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"15c: maps {(h, w)} differ from numpy")
+    log(f"15c native image ops bit-equal to numpy on this host: {len(RESIZES)} "
+        f"resizes (native {t_native * 1e3:.2f} ms, numpy {t_numpy * 1e3:.2f} ms in "
+        "all) and 2 map pairs with pixels hit twice")
+    return len(RESIZES) + 2
+
+
+def run_phase15(dev) -> dict:
+    from mm2d3d_tpu_torch.tools import bench_loader
+
+    t0 = time.perf_counter()
+    log(f"phase 15a: topologies of {SEARCH_BATCHES} scans (key search at the coarsest "
+        f"level), card vs CPU; the eval forward at batch {SEARCH_EVAL_BATCH}")
+    builds = check_search_topologies(dev)
+    ev = run_search_eval(dev)
+    log(f"phase 15b: train step at batch {SEARCH_TRAIN_BATCH} per domain")
+    tr = run_search_train(dev)
+    log("phase 15c: the loader's C++ image ops; tools/bench_loader.py "
+        + ", ".join(f"{k}={v}" for k, v in LOADER_BENCH.items()))
+    cases = check_host_image_ops()
+    bench = bench_loader.run(**LOADER_BENCH, device=str(dev))
+    log("15c bench_loader: " + json.dumps(bench))
+    seconds = time.perf_counter() - t0
+    log(f"phase 15: {seconds:.1f} s")
+    return {"builds": builds, "eval": ev, "train": tr, "image_cases": cases,
+            "bench": bench, "seconds": seconds}
+
+
 def descendants() -> list:
     """Live processes below this one (children, their children, ...), read
     from /proc; zombies are left out, they end with their parent."""
@@ -2717,6 +2962,13 @@ def run_all(dev, cli_root: str) -> int:
     log(f"phase 14: {len(running)} server processes of the loader pools stopped; "
         "no process of this script left running")
 
+    log("phase 15: batches past the dense neighbour map (key search), the "
+        "loader's C++ image ops")
+    p15 = run_phase15(dev)
+    left = stop_processes()
+    if left:
+        raise AssertionError(f"processes still running after phase 15: {left}")
+
     from mm2d3d_tpu_torch.ops import kernels
 
     main_case = {"propagate": "L0 ", "maxpool": f"({BATCH}, 240, 400, 64) float32",
@@ -2765,6 +3017,8 @@ def run_all(dev, cli_root: str) -> int:
             "dp_cli_launches_per_rank": [n[name] for n in dp["launches"]],
             "generator_launches_per_scan": st["gen"]["launches"][name] / st["gen"]["scans"],
             "learning_check_launches_per_step": st["learn"]["check"]["per_step"][name],
+            "b32_eval_launches_per_forward": p15["eval"]["per_forward"][name],
+            "b24_train_launches_per_step": p15["train"]["launches"][name],
         })
     log(f"slice: {slice_ms:.2f} ms/batch of {BATCH}, {BATCH * 1e3 / slice_ms:.1f} scans/s")
     log(f"train: {train_ms:.2f} ms/step of 2 x {BATCH}, "
@@ -2792,6 +3046,17 @@ def run_all(dev, cli_root: str) -> int:
     log(f"data parallel CLI, 2 ranks sharing the card (gloo; not a scaling number): "
         + ", ".join(f"{m:.2f} ms/step, peak {g:.2f} GiB" for m, g in zip(dp["ms"], dp["peak"]))
         + f"; phase 13 {dp['seconds']:.1f} s")
+    ev, tr, bench = p15["eval"], p15["train"], p15["bench"]
+    log(f"key-search batches: eval forward batch {SEARCH_EVAL_BATCH} {ev['ms']:.2f} "
+        f"ms/batch, peak {ev['peak']:.2f} GiB; train step batch {SEARCH_TRAIN_BATCH} "
+        f"per domain {tr['ms']:.2f} ms/step, peak {tr['peak']:.2f} GiB; card topology "
+        "builds " + ", ".join(f"B={b} {v:.2f} ms" for b, v in p15["builds"].items()))
+    log("loader scans/s (" + ", ".join(f"{k} {v:.2f}" for k, v in bench["results"].items())
+        + f"), stages at batch {bench['batch']}: loader "
+        f"{bench['stage_loader_ms_per_batch']:.2f} ms, copy "
+        f"{bench['stage_transfer_ms_per_batch']:.2f} ms, train step "
+        f"{bench['stage_device_step_ms']:.2f} ms; the CLI step (phase 10) "
+        f"{cli_ms:.2f} ms; phase 15 {p15['seconds']:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

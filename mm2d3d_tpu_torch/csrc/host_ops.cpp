@@ -1,21 +1,103 @@
-// Host (CPU) construction of the sparse U-Net's integer topology for
-// mm2d3d_tpu_torch: voxel dedup, 27-neighbour tables, tiered slot tables
-// and parent/child maps, built with hash maps so that the data loader can
-// build a batch's tables while the card runs the previous step.  Every
-// table equals the one the device path builds (ops/voxelize.py,
-// ops/hierarchy.py); mm2d3d_tpu_torch/data/host_topology.py assembles them.
+// Host (CPU) work of mm2d3d_tpu_torch's data path.
 //
-// A copy of the topology functions of the JAX package's csrc/host_ops.cpp.
+// The loader's image ops: a bilinear resize and the sparse depth and dense
+// 2D label maps, bit-equal to the numpy versions in data/augment.py (which
+// select them).  They compute in double, in numpy's order of operations;
+// the file is built with -ffp-contract=off, since a fused multiply-add
+// would round once where numpy rounds twice.
+//
+// The sparse U-Net's integer topology: voxel dedup, 27-neighbour tables,
+// tiered slot tables and parent/child maps, built with hash maps so that
+// the data loader can build a batch's tables while the card runs the
+// previous step.  Every table equals the one the device path builds
+// (ops/voxelize.py, ops/hierarchy.py); data/host_topology.py assembles
+// them.  A copy of the topology functions of the JAX package's
+// csrc/host_ops.cpp.
+//
 // C interface, bound with ctypes by mm2d3d_tpu_torch/native.py, which
 // builds this file with g++ into mm2d3d_tpu_torch/_build/ at first use.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <unordered_map>
 #include <utility>
 #include <vector>
 
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// image ops
+// ---------------------------------------------------------------------------
+
+// Bilinear resize (half-pixel centres, edge-clamped, as PIL's BILINEAR
+// without antialiasing) of an HWC uint8 image given by its element strides
+// (any numpy view) -> (out_h, out_w, c) double, stored x-major as numpy
+// stores its result (`img[y0][:, x0]` puts the indexed axis outermost):
+// element (y, x, ch) at dst[(x * out_h + y) * c + ch].  The layout matters
+// downstream, where color jitter's means sum in memory order.  Per output
+// row:
+//   ys = (y + 0.5) * in_h / out_h - 0.5, y0 = clip(floor(ys)),
+//   wy = clip(ys - y0, 0, 1), top = a * (1 - wx) + b * wx,
+//   out = top * (1 - wy) + bot * wy,
+// each operation rounded as numpy rounds it.  Single-threaded: a 1600x900
+// frame takes milliseconds, and the loader runs samples in parallel
+// processes, where OpenMP threads would oversubscribe the cores.
+void bilinear_resize_u8(const uint8_t* src, int64_t s_row, int64_t s_col,
+                        int64_t s_ch, int32_t in_h, int32_t in_w, int32_t c,
+                        double* dst, int32_t out_h, int32_t out_w) {
+  std::vector<int64_t> x0(out_w), x1(out_w);
+  std::vector<double> wx(out_w);
+  for (int32_t x = 0; x < out_w; ++x) {
+    double xs = (x + 0.5) * in_w / out_w - 0.5;
+    int64_t f = static_cast<int64_t>(std::floor(xs));
+    x0[x] = std::min<int64_t>(std::max<int64_t>(f, 0), in_w - 1);
+    x1[x] = std::min<int64_t>(x0[x] + 1, in_w - 1);
+    wx[x] = std::min(std::max(xs - static_cast<double>(x0[x]), 0.0), 1.0);
+  }
+  for (int32_t y = 0; y < out_h; ++y) {
+    double ys = (y + 0.5) * in_h / out_h - 0.5;
+    int64_t f = static_cast<int64_t>(std::floor(ys));
+    int64_t y0 = std::min<int64_t>(std::max<int64_t>(f, 0), in_h - 1);
+    int64_t y1 = std::min<int64_t>(y0 + 1, in_h - 1);
+    double wy = std::min(std::max(ys - static_cast<double>(y0), 0.0), 1.0);
+    const uint8_t* r0 = src + y0 * s_row;
+    const uint8_t* r1 = src + y1 * s_row;
+    double* out = dst + static_cast<int64_t>(y) * c;
+    for (int32_t x = 0; x < out_w; ++x) {
+      const int64_t a = x0[x] * s_col, b = x1[x] * s_col;
+      const double w1 = wx[x], w0 = 1.0 - w1;
+      for (int32_t ch = 0; ch < c; ++ch) {
+        const int64_t o = ch * s_ch;
+        double top = static_cast<double>(r0[a + o]) * w0 +
+                     static_cast<double>(r0[b + o]) * w1;
+        double bot = static_cast<double>(r1[a + o]) * w0 +
+                     static_cast<double>(r1[b + o]) * w1;
+        out[static_cast<int64_t>(x) * out_h * c + ch] =
+            top * (1.0 - wy) + bot * wy;
+      }
+    }
+  }
+}
+
+// Sparse depth map (0 elsewhere) and dense 2D label map (-100 elsewhere)
+// from n projected points (row, col), as numpy's fancy assignment: a
+// negative index counts from the end, and of two points on one pixel the
+// later wins.  The caller checks -h <= row < h and -w <= col < w.
+void depth_label_maps(const int64_t* img_indices, const float* depths,
+                      const int64_t* labels, int64_t n, int32_t h, int32_t w,
+                      float* depth_map, int64_t* label_map) {
+  const size_t cells = static_cast<size_t>(h) * w;
+  std::fill(depth_map, depth_map + cells, 0.0f);
+  std::fill(label_map, label_map + cells, static_cast<int64_t>(-100));
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t r = img_indices[2 * i], col = img_indices[2 * i + 1];
+    if (r < 0) r += h;
+    if (col < 0) col += w;
+    depth_map[r * w + col] = depths[i];
+    label_map[r * w + col] = labels[i];
+  }
+}
 
 // ---------------------------------------------------------------------------
 // voxel topology (host-side SparseGrid construction)

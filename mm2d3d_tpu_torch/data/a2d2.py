@@ -1,5 +1,5 @@
 """A2D2 (Audi), the source of the A2D2 -> SemanticKITTI scenario (port of
-`mm2d3d_tpu/data/a2d2.py`, numpy only).
+`mm2d3d_tpu/data/a2d2.py`; numpy, with the C++ image ops of `data.augment`).
 
 Capability parity with ``lib/dataset/a2d2.py:15-408``:
 

@@ -1,5 +1,5 @@
 """Host-side data augmentation: 3D point-cloud and 2D image transforms
-(port of `mm2d3d_tpu/data/augment.py`, its numpy paths).
+(port of `mm2d3d_tpu/data/augment.py`).
 
 - `augment_and_scale_3d`: random rotation-matrix noise, axis flips by sign,
   rot-z or rot-y, scale to voxel units, shift to the positive octant,
@@ -11,15 +11,24 @@
   crop, color jitter (on the host, or its parameters for the device),
   normalization.
 
-The JAX package also has C++ versions of the image ops, which its tests
-hold bit-compatible with these numpy ones; they stay with that package.
+The resize of a uint8 HWC image and the depth and label maps run in C++
+(`native.bilinear_resize_u8`, `native.depth_label_maps`), bit-equal to the
+numpy code here, unless ``MM2D3D_HOST_NATIVE=0`` (read at each call) selects
+numpy.  Where the host library cannot be built, the native path raises.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
+
+
+def use_native() -> bool:
+    """The C++ image ops unless ``MM2D3D_HOST_NATIVE=0``, as in the JAX
+    package."""
+    return os.environ.get("MM2D3D_HOST_NATIVE", "1") != "0"
 
 
 # --------------------------------------------------------------------------
@@ -86,7 +95,12 @@ def bilinear_resize(image: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     out_h, out_w = out_hw
     if (in_h, in_w) == (out_h, out_w):
         return image.astype(np.float32)
-    # align_corners=False convention (matches PIL)
+    if use_native() and image.dtype == np.uint8 and image.ndim == 3:
+        from .. import native
+
+        return native.bilinear_resize_u8(image, (out_h, out_w))
+    # align_corners=False convention (matches PIL); float64 weights, so a
+    # uint8 or float32 image gives float64
     ys = (np.arange(out_h) + 0.5) * in_h / out_h - 0.5
     xs = (np.arange(out_w) + 0.5) * in_w / out_w - 0.5
     y0 = np.clip(np.floor(ys).astype(np.int64), 0, in_h - 1)
@@ -124,6 +138,10 @@ def build_depth_and_label_maps(
     """Sparse depth map (z at projected pixels) + dense -100-filled 2D label
     map (nuscenes_dataloader.py:274-278)."""
     h, w = hw
+    if use_native():
+        from .. import native
+
+        return native.depth_label_maps(img_indices, depths, seg_label, (h, w))
     depth = np.zeros((h, w), np.float32)
     depth[img_indices[:, 0], img_indices[:, 1]] = depths
     labels_2d = np.full((h, w), -100, np.int64)

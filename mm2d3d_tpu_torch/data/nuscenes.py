@@ -1,5 +1,6 @@
-"""nuScenes-lidarseg dataset (USA/Singapore & Day/Night UDA scenarios;
-port of `mm2d3d_tpu/data/nuscenes.py`, numpy only).
+"""nuScenes-lidarseg dataset (USA/Singapore & Day/Night UDA scenarios; port
+of `mm2d3d_tpu/data/nuscenes.py`; numpy, with the C++ image ops of
+`data.augment`).
 
 Capability parity with ``lib/dataset/nuscenes_dataloader.py:180-369``:
 pickled scans -> class merge 16->6 (-100 ignore), lidar-or-camera coords,

@@ -1,5 +1,6 @@
 """SemanticKITTI dataset, the UDA target of the A2D2 and VirtualKITTI
-scenarios (port of `mm2d3d_tpu/data/semantic_kitti.py`, numpy only).
+scenarios (port of `mm2d3d_tpu/data/semantic_kitti.py`; numpy, with the C++
+image ops of `data.augment`).
 
 Capability parity with ``lib/dataset/semantic_kitti.py:13-492``:
 

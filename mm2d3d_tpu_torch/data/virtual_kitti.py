@@ -1,5 +1,6 @@
 """VirtualKITTI, the synthetic source of the sim-to-real scenario (port of
-`mm2d3d_tpu/data/virtual_kitti.py`, numpy only).
+`mm2d3d_tpu/data/virtual_kitti.py`; numpy, with the C++ image ops of
+`data.augment`).
 
 Capability parity with ``lib/dataset/virtual_kitti_dataloader.py:12-364``:
 

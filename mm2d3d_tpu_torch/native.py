@@ -1,4 +1,5 @@
-"""ctypes binding of the host topology library (`csrc/host_ops.cpp`).
+"""ctypes binding of the host library (`csrc/host_ops.cpp`): the loader's
+image ops and the host topology.
 
 The library is compiled with ``g++`` at first use into
 ``mm2d3d_tpu_torch/_build/``; its file name carries a hash of the source,
@@ -10,9 +11,11 @@ each build writes a temporary file that is renamed into place, so no
 process loads a half-written library.
 
 There is no fallback: when the library cannot be built or loaded, `lib()`
-raises, and so does every caller (`data.host_topology`, a trainer with
+raises, and so does every caller (`data.augment`'s image ops unless
+``MM2D3D_HOST_NATIVE=0``, `data.host_topology`, a trainer with
 `host_topology=True`).  The calls release the GIL (ctypes), so topologies
-build in threads beside the train step.
+build in threads beside the train step.  ``-ffp-contract=off`` keeps the
+image ops bit-equal to numpy: no multiply and add is fused.
 """
 
 from __future__ import annotations
@@ -32,12 +35,16 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "host_ops.cpp")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 CXX = "g++"
-CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-fopenmp",
-             "-std=c++17", "-Wall")
+CXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-shared",
+             "-fopenmp", "-std=c++17", "-Wall")
 
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _i32 = ctypes.c_int32
+_i64 = ctypes.c_int64
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -92,6 +99,13 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             so = ctypes.CDLL(build())
+            so.bilinear_resize_u8.argtypes = [
+                ctypes.c_void_p, _i64, _i64, _i64, _i32, _i32, _i32, _f64p, _i32,
+                _i32,
+            ]
+            so.depth_label_maps.argtypes = [
+                _i64p, _f32p, _i64p, _i64, _i32, _i32, _f32p, _i64p,
+            ]
             so.voxelize_dedup.restype = _i32
             so.voxelize_dedup.argtypes = [
                 _i32p, _i32p, _u8p, _i32, _i32, _i32, _i32p, _i32p, _i32p, _i32p,
@@ -109,6 +123,45 @@ def lib() -> ctypes.CDLL:
 
 def _i32a(a) -> np.ndarray:
     return np.ascontiguousarray(a, np.int32)
+
+
+def bilinear_resize_u8(image: np.ndarray, out_hw) -> np.ndarray:
+    """(H, W, C) uint8 image (any strides) -> (out_h, out_w, C) float64,
+    bit-equal to `data.augment.bilinear_resize`'s numpy path and in its
+    memory order (x-major), so that later reductions sum alike."""
+    if image.dtype != np.uint8 or image.ndim != 3:
+        raise TypeError(f"want an (H, W, C) uint8 image, got {image.dtype} "
+                        f"{image.shape}")
+    out_h, out_w = (int(v) for v in out_hw)
+    in_h, in_w, c = image.shape
+    if min(in_h, in_w, c, out_h, out_w) <= 0:
+        raise ValueError(f"empty resize {image.shape} -> {(out_h, out_w)}")
+    out = np.empty((out_w, out_h, c), np.float64)
+    lib().bilinear_resize_u8(image.ctypes.data, *image.strides, in_h, in_w, c,
+                             out, out_h, out_w)
+    return out.transpose(1, 0, 2)
+
+
+def depth_label_maps(img_indices, depths, labels, hw):
+    """Sparse float32 depth map and int64 label map (-100 where no point
+    lands) of projected points, as `data.augment.build_depth_and_label_maps`'s
+    numpy fancy assignment (negative indices wrap, the last point on a pixel
+    wins, an index outside [-h, h) x [-w, w) raises IndexError)."""
+    h, w = (int(v) for v in hw)
+    idx = np.asarray(img_indices)
+    if not np.issubdtype(idx.dtype, np.integer):
+        raise IndexError(f"image indices must be integers, got {idx.dtype}")
+    idx = np.ascontiguousarray(idx, np.int64).reshape(-1, 2)
+    n = len(idx)
+    depths = np.ascontiguousarray(np.broadcast_to(depths, (n,)), np.float32)
+    labels = np.ascontiguousarray(np.broadcast_to(labels, (n,)), np.int64)
+    if n and not ((-h <= idx[:, 0]).all() and (idx[:, 0] < h).all()
+                  and (-w <= idx[:, 1]).all() and (idx[:, 1] < w).all()):
+        raise IndexError(f"an image index lies outside ({h}, {w})")
+    depth_map = np.empty((h, w), np.float32)
+    label_map = np.empty((h, w), np.int64)
+    lib().depth_label_maps(idx, depths, labels, n, h, w, depth_map, label_map)
+    return depth_map, label_map
 
 
 def voxelize_dedup(coords, batch, valid, full_scale: int, capacity: int):

@@ -2,8 +2,9 @@
 
 Port of `mm2d3d_tpu/ops/hierarchy.py`: the voxel tables are coarsened
 bottom-up, the coarsest level's 27-neighbour table comes from a dense
-occupancy map, and every finer level's table and tier-1 slots come from
-octree propagation through the K3 kernel (`ops.kernels.propagate`),
+occupancy map where it is small enough and from a search of the sorted keys
+otherwise (`build_nbr`), and every finer level's table and tier-1 slots
+come from octree propagation through the K3 kernel (`ops.kernels.propagate`),
 followed by the compacted overflow tiers of each level's slot spec (or no
 slot tables, for the dense 27-tap path).  All tables are int32 and
 bit-identical to the JAX package's.
@@ -102,35 +103,40 @@ class Hierarchy:
     transitions: Tuple[LevelTransition, ...] = field(default_factory=tuple)
 
 
-def build_nbr(grid: VoxelGrid, num_batches: int) -> torch.Tensor:
-    """27-neighbour table (27, V) of a (coarse) grid through a dense
-    occupancy map of fs^3 * num_batches cells (the JAX `build_nbr`'s
-    dense-map branch).  The binary-search branch for larger grids is not
-    ported and raises."""
+def build_nbr(grid: VoxelGrid, num_batches: Optional[int] = None) -> torch.Tensor:
+    """27-neighbour table (27, V) of a (coarse) grid: 26 exact-match lookups
+    and the centre column, as the JAX `build_nbr`.
+
+    With `num_batches` given, fs <= 1024 and fs^3 * num_batches <=
+    `_DENSE_NBR_MAX_ENTRIES`, one write of the valid rows builds a dense
+    occupancy map and the 26 probes read it; otherwise each probe searches
+    the sorted keys (`keys.lookup_pairs`).  Both give the same table."""
     v = grid.capacity
     fs = grid.full_scale
-    cell_count = fs ** 3 * num_batches
-    if fs > 1024 or cell_count > _DENSE_NBR_MAX_ENTRIES:
-        raise NotImplementedError(
-            f"dense neighbour map needs fs <= 1024 and fs^3 * B <= "
-            f"{_DENSE_NBR_MAX_ENTRIES} (got fs={fs}, B={num_batches})"
-        )
     dev = grid.coords.device
     rows = torch.arange(v, dtype=torch.int32, device=dev)
     offs = _on_device("offsets", dev)
     qc = grid.coords[None] + offs[:, None, :]  # (26, V, 3)
     ok = grid.valid[None] & (qc >= 0).all(-1) & (qc < fs).all(-1)
+    q_batch = grid.batch.expand(26, v)
 
-    _, own_lo = K.pack(grid.coords, grid.batch)
-    base = grid.batch.to(torch.int64) * fs ** 3
-    own_flat = torch.where(grid.valid, base + own_lo, cell_count)
-    dense = torch.zeros(cell_count + 1, dtype=torch.int32, device=dev)
-    dense[own_flat] = rows + 1
-    _, q_lo = K.pack(qc, grid.batch.expand(26, v))
-    q_flat = torch.where(ok, base[None] + q_lo, cell_count)
-    hit = dense[q_flat] - 1  # -1 = missing
-    # `ok` masks the result too: masked writes and queries share the dump cell
-    hit = torch.where(ok & (hit >= 0), hit, v).to(torch.int32)
+    if (num_batches is not None and fs <= 1024
+            and fs ** 3 * num_batches <= _DENSE_NBR_MAX_ENTRIES):
+        cell_count = fs ** 3 * num_batches
+        _, own_lo = K.pack(grid.coords, grid.batch)
+        base = grid.batch.to(torch.int64) * fs ** 3
+        own_flat = torch.where(grid.valid, base + own_lo, cell_count)
+        dense = torch.zeros(cell_count + 1, dtype=torch.int32, device=dev)
+        dense[own_flat] = rows + 1
+        _, q_lo = K.pack(qc, q_batch)
+        q_flat = torch.where(ok, base[None] + q_lo, cell_count)
+        hit = dense[q_flat] - 1  # -1 = missing
+        # `ok` masks the result too: masked writes and queries share the
+        # dump cell
+        hit = torch.where(ok & (hit >= 0), hit, v).to(torch.int32)
+    else:
+        q_hi, q_lo = K.mask_invalid(*K.pack(qc, q_batch), ok)
+        hit = K.lookup_pairs(grid.key_hi, grid.key_lo, q_hi, q_lo, missing=v)
     center = torch.where(grid.valid, rows, v).to(torch.int32)
     return torch.cat([hit[:CENTER], center[None], hit[CENTER:]])
 
@@ -274,6 +280,13 @@ def _coarsen_grid(grid: VoxelGrid, capacity: Optional[int] = None):
     return grid_c, LevelTransition(parent=parent, off_id=off_id, child=child[:vc])
 
 
+def coarsen(level: GridLevel, capacity: Optional[int] = None):
+    """`_coarsen_grid` and a search-built neighbour table (standalone use,
+    the JAX `coarsen`) -> (GridLevel, LevelTransition)."""
+    grid_c, trans = _coarsen_grid(level, capacity=capacity)
+    return _level(grid_c, build_nbr(grid_c)), trans
+
+
 def _level(grid: VoxelGrid, nbr: torch.Tensor) -> GridLevel:
     return GridLevel(
         key_hi=grid.key_hi, key_lo=grid.key_lo, coords=grid.coords,
@@ -298,7 +311,7 @@ def _check_spec(l: int, spec: SlotSpec) -> SlotSpec:
 def build_hierarchy(grid: VoxelGrid, num_levels: int,
                     capacities: Sequence[int],
                     slot_caps: Optional[Sequence[SlotSpec]],
-                    num_batches: int, child_slot_caps=None) -> Hierarchy:
+                    num_batches: Optional[int], child_slot_caps=None) -> Hierarchy:
     """All U-Net levels from the level-0 grid.
 
     `slot_caps[l]` takes every form the JAX `build_hierarchy` takes: a
@@ -308,7 +321,8 @@ def build_hierarchy(grid: VoxelGrid, num_levels: int,
     level's convolutions take the dense 27-tap path).  `slot_caps=None`, or
     a list shorter than `num_levels`, leaves the levels without a spec dense.
 
-    The coarsest level's table comes from `build_nbr`; every finer one from
+    The coarsest level's table comes from `build_nbr` (the dense map up to
+    `_DENSE_NBR_MAX_ENTRIES` cells, the key search above); every finer one from
     `propagate_nbr_slots` (K3), which also yields its tier-1 slots.  A
     level without slots takes K3's table with h1 = 0: the same table as the
     JAX package's select tree (`propagate_nbr`), from one launch.

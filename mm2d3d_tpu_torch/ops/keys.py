@@ -10,8 +10,9 @@ Pairs order lexicographically, which equals (batch, morton) order, and
 right-shifting coordinates keeps that order (morton(c >> 1) == morton(c) >> 3),
 so a coarsened sorted table is sorted already.  The bit arithmetic runs in
 int64 (torch's uint32 shifts are incomplete) and the keys come out int32, as
-in the JAX package, so tables compare bit for bit.  Where this port sorts, it
-sorts one int64 key ``hi << 32 | lo``, which has the pairs' order.
+in the JAX package, so tables compare bit for bit.  Where this port sorts or
+searches, it takes one int64 key ``hi << 32 | (lo + 2^31)``, which has the
+pairs' signed lexicographic order.
 """
 
 from __future__ import annotations
@@ -91,9 +92,45 @@ def mask_invalid(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor):
             torch.where(valid, lo, INVALID).to(torch.int32))
 
 
+def _packed(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """One int64 key per pair, in the pairs' order: lo + 2^31 maps the
+    signed int32 order of lo onto [0, 2^32)."""
+    return (hi.to(torch.int64) << 32) + (lo.to(torch.int64) + (1 << 31))
+
+
 def sort_perm(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """Stable permutation sorting pair keys lexicographically ((hi, lo)
     ascending), via one int64 key with the same order."""
-    # lo + 2^31 maps the signed int32 order of lo onto [0, 2^32)
-    key = (hi.to(torch.int64) << 32) + (lo.to(torch.int64) + (1 << 31))
-    return torch.sort(key, stable=True).indices.to(torch.int32)
+    return torch.sort(_packed(hi, lo), stable=True).indices.to(torch.int32)
+
+
+def pairs_less(hi_a, lo_a, hi_b, lo_b):
+    return (hi_a < hi_b) | ((hi_a == hi_b) & (lo_a < lo_b))
+
+
+def pairs_equal(hi_a, lo_a, hi_b, lo_b):
+    return (hi_a == hi_b) & (lo_a == lo_b)
+
+
+def searchsorted_pairs(hi_sorted: torch.Tensor, lo_sorted: torch.Tensor,
+                       hi_query: torch.Tensor, lo_query: torch.Tensor
+                       ) -> torch.Tensor:
+    """Leftmost insertion index (int32) of each query pair into a sorted
+    pair table: the JAX package's branchless binary search, as one
+    `torch.searchsorted` over the packed keys (no host sync)."""
+    return torch.searchsorted(_packed(hi_sorted, lo_sorted),
+                              _packed(hi_query, lo_query), out_int32=True)
+
+
+def lookup_pairs(hi_sorted: torch.Tensor, lo_sorted: torch.Tensor,
+                 hi_query: torch.Tensor, lo_query: torch.Tensor,
+                 missing: int) -> torch.Tensor:
+    """Exact-match lookup: index (int32) of each query in the sorted table,
+    or `missing`.  A query whose hi is INVALID is never found, though the
+    table's padding rows hold INVALID too."""
+    table = _packed(hi_sorted, lo_sorted)
+    query = _packed(hi_query, lo_query)
+    idx = torch.searchsorted(table, query, out_int32=True)
+    idx = torch.clamp(idx, max=table.shape[0] - 1)
+    found = (table[idx.long()] == query) & (hi_query != INVALID)
+    return torch.where(found, idx, missing).to(torch.int32)

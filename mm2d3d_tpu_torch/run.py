@@ -269,7 +269,8 @@ def main(argv=None):
 
     from .utils.logging import create_logger, snapshot_code
 
-    logger = create_logger(cfg.get("logging"), out_dir=out_dir)
+    logger = create_logger(cfg.get("logging"), out_dir=out_dir,
+                           resume=cfg["run"].get("resume", False))
     logger.log_hyperparams(
         {"config": args.config, "overrides": args.overrides, **cfg["train"]["params"]})
     snapshot_code(out_dir, osp.dirname(osp.dirname(osp.abspath(__file__))))

@@ -131,6 +131,18 @@ class CheckpointIO:
         return osp.exists(self._path(name))
 
 
+def batch_to_device(batch: PointBatch, dev: torch.device) -> PointBatch:
+    """The batch's tensors on `dev`: from pinned memory with non-blocking
+    copies on CUDA."""
+    if dev.type != "cuda":
+        return batch.to(dev)
+    return dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name).pin_memory().to(dev, non_blocking=True)
+        for f in dataclasses.fields(batch)
+        if isinstance(getattr(batch, f.name), torch.Tensor)
+    })
+
+
 class Trainer:
     def __init__(
         self,
@@ -230,23 +242,11 @@ class Trainer:
         if self.task.group is not None:
             mesh.replicate(self.task, self.task.group)
 
-    def _to_device(self, batch: PointBatch) -> PointBatch:
-        """The batch's tensors on the task's device: from pinned memory with
-        non-blocking copies on CUDA."""
-        dev = self.task.device
-        if dev.type != "cuda":
-            return batch.to(dev)
-        return dataclasses.replace(batch, **{
-            f.name: getattr(batch, f.name).pin_memory().to(dev, non_blocking=True)
-            for f in dataclasses.fields(batch)
-            if isinstance(getattr(batch, f.name), torch.Tensor)
-        })
-
     def _item_to_device(self, item):
         """(src, trg[, topo_src, topo_trg]) on the task's device."""
         src, trg, *topos = item
         dev = self.task.device
-        return (self._to_device(src), self._to_device(trg),
+        return (batch_to_device(src, dev), batch_to_device(trg, dev),
                 *(HT.to_device(t, dev) for t in topos))
 
     # -- train ---------------------------------------------------------------
@@ -371,7 +371,7 @@ class Trainer:
         """The loader's batches on the device, a figure of every
         ``val_log_images_step``-th one first."""
         for i, batch in enumerate(loader):
-            batch = self._to_device(batch)
+            batch = batch_to_device(batch, self.task.device)
             if self.val_log_images_step and i % self.val_log_images_step == 0:
                 self._log_images(batch, stage.replace("/", "_"))
             yield batch

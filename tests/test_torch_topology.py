@@ -117,11 +117,16 @@ def test_propagate_candidates_match_jax():
 
 
 def test_build_nbr_refuses_large_grids():
-    coords = torch.zeros((4, 3), dtype=torch.int32)
-    g = voxelize(coords, torch.zeros(4, dtype=torch.int32),
-                 torch.ones(4, dtype=torch.bool), full_scale=2048)
-    with pytest.raises(NotImplementedError):
-        H.build_nbr(g, num_batches=1)
+    """Grids past the dense map (fs > 1024) are no longer refused: the
+    table comes from the key search and equals JAX's."""
+    coords = np.array([[0, 0, 0], [0, 0, 1], [1, 1, 1], [2047, 2047, 2047]], np.int32)
+    args = (np.zeros(4, np.int32), np.ones(4, bool))
+    g = voxelize(torch.from_numpy(coords), *map(torch.from_numpy, args),
+                 full_scale=2048)
+    ref = voxelize_jax(jnp.asarray(coords), *map(jnp.asarray, args), 2048)
+    nbr = H.build_nbr(g, num_batches=1)
+    assert_equal(nbr, HJ.build_nbr(ref, num_batches=1), "nbr")
+    assert int((nbr < 4).sum()) == 4 + 6  # centres; 0-1, 0-2, 1-2 both ways
 
 
 SIZES = {

@@ -26,6 +26,7 @@
 import json
 import os.path as osp
 import shutil
+import sys
 
 import flax.linen
 import jax
@@ -462,16 +463,25 @@ def test_cli_worker_pools_then_stop_worker_server(workspace):
     assert [p for p in servers if osp.exists(f"/proc/{p}")] == []
 
 
-@pytest.mark.parametrize("override,error", [
-    ("logging.wandb.project=x", NotImplementedError),
-    ("logging.mlflow.experiment=x", NotImplementedError),
+@pytest.mark.parametrize("override,tracker", [
+    ("logging.wandb.project=x", "wandb"),
+    ("logging.mlflow.experiment_name=x", "mlflow"),
 ])
-def test_cli_refuses_what_is_not_ported(workspace, override, error):
+def test_cli_refuses_what_is_not_ported(workspace, override, tracker, monkeypatch,
+                                        capsys):
+    """The trackers are ported now, so the CLI refuses neither: without the
+    tracker's package it prints the JAX package's "<tracker> logging
+    disabled" line and trains with stdout and metrics.jsonl
+    (tests/test_torch_trackers.py holds the loggers themselves)."""
     from mm2d3d_tpu_torch.run import main
 
-    with pytest.raises(error, match="not ported"):
-        main(["--config", str(workspace / "configs" / "config.yaml"),
-              "--device", "cpu", override])
+    monkeypatch.setitem(sys.modules, tracker, None)  # the import raises
+    trainer, _ = main(["--config", str(workspace / "configs" / "config.yaml"),
+                       "--device", "cpu", override])
+    assert trainer.global_step == 2
+    assert f"{tracker} logging disabled: " in capsys.readouterr().err
+    assert (workspace / "runs" / "t" / "metrics.jsonl").exists()
+    assert not (workspace / "runs" / "t" / "run_id.yaml").exists()
 
 
 # --------------------------------------------------------------------------
