@@ -56,7 +56,13 @@ card against CPU, the bf16 eval forward at batch 32 and a bf16 train step
 at 24 per domain (launches as predicted, both monitors equal to the
 tables' counts); then the loader's C++ image ops bit-equal to numpy on the
 card's host, and `tools/bench_loader.py` (scans/s per image path, the
-stage split of a train step at batch 16).  Prints,
+stage split of a train step at batch 16).  Phase 16 drives the host
+self-validation tool: `python -m mm2d3d_tpu_torch.tools.doctor --perf` in
+its own session (exit 0, the JAX tool's keys without donation, each
+recommendation in its set, no process left), then the tool's probes in
+this process (loader pools, no process left; forwards with the card's and
+host-built topologies, bit-equal, K3 only in the card's; `Trainer.fit` at
+prefetch depths 0, 2 and 4, launches per step as predicted).  Prints,
 in its last lines, the card (nvidia-smi name and power
 limit), one JSON line of kernel results, and one JSON line
 {"ok": true, "device": {...}}.  Any failed phase raises, and
@@ -2813,10 +2819,171 @@ def run_phase15(dev) -> dict:
             "bench": bench, "seconds": seconds}
 
 
-def descendants() -> list:
-    """Live processes below this one (children, their children, ...), read
-    from /proc; zombies are left out, they end with their parent."""
-    parent = {}
+# --------------------------------------------------------------------------
+# phase 16: the host self-validation tool (tools/autotune.py, doctor --perf)
+# --------------------------------------------------------------------------
+
+AUTOTUNE_ITERS = 4
+AUTOTUNE_TIMEOUT_S = 300
+AUTOTUNE_KEYS = {  # the JAX tool's keys, without donation
+    "loader_scans_per_sec_by_workers": ({"0", "2", "4"}, "num_workers", {0, 2, 4}),
+    "fwd_ms_by_topology": ({"host-topo", "device-topo"}, "host_topology", {True, False}),
+    "fit_step_ms_by_prefetch": ({"0", "2", "4"}, "prefetch_batches", {0, 2, 4}),
+}
+
+
+def session_processes(sid: int) -> list:
+    """Live processes of session `sid`, from /proc."""
+    return [pid for pid, _, s in live_processes() if s == sid]
+
+
+def check_autotune_result(result: dict, what: str) -> None:
+    """The JSON line: the JAX tool's measured and recommended keys (no
+    donation), finite positive times and rates, each recommendation in its
+    allowed set."""
+    measured, recommended = result["measured"], result["recommended"]
+    if set(measured) != set(AUTOTUNE_KEYS):
+        raise AssertionError(f"{what}: measured keys {sorted(measured)}")
+    if set(recommended) != {v[1] for v in AUTOTUNE_KEYS.values()}:
+        raise AssertionError(f"{what}: recommended keys {sorted(recommended)}")
+    for key, (inner, rec, allowed) in AUTOTUNE_KEYS.items():
+        values = measured[key]
+        if set(values) != inner or not all(
+                isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+                for v in values.values()):
+            raise AssertionError(f"{what}: {key} {values}")
+        if recommended[rec] not in allowed or type(recommended[rec]) is not (
+                bool if rec == "host_topology" else int):
+            raise AssertionError(f"{what}: {rec} {recommended[rec]!r}")
+
+
+def run_doctor_perf() -> dict:
+    """16a: `python -m mm2d3d_tpu_torch.tools.doctor --perf` as users run it,
+    in its own session: exit 0, the JSON line held by
+    `check_autotune_result`, and no process of its session left."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the memory the earlier phases cached, for the tool
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mm2d3d_tpu_torch.tools.doctor", "--perf", "--iters",
+         str(AUTOTUNE_ITERS)], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=AUTOTUNE_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        deadline = time.monotonic() + 5  # what exits with the tool has ended by then
+        while session_processes(proc.pid) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        left = session_processes(proc.pid)
+    finally:
+        for pid in session_processes(proc.pid):
+            os.kill(pid, signal.SIGKILL)
+        proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"16a: doctor --perf exit {proc.returncode}: {err[-3000:]}")
+    if left:
+        raise AssertionError(f"16a: processes of doctor --perf still running: {left}")
+    lines = out.strip().splitlines()
+    result = json.loads(lines[-1])
+    check_autotune_result(result, "16a doctor --perf")
+    probes = [ln for ln in lines[:-1] if ln.startswith(
+        ("workers:", "autotune:", "donation:", "host_topology:", "prefetch:"))]
+    if not any(ln.startswith("donation: not probed") for ln in probes):
+        raise AssertionError("16a: no donation line")
+    log(f"16a doctor --perf --iters {AUTOTUNE_ITERS}: exit 0 in {seconds:.1f} s, no "
+        "process of its session left; " + " | ".join(probes))
+    return {"result": result, "seconds": seconds}
+
+
+def run_autotune_probes(dev) -> dict:
+    """16b-d: the tool's probes in this process at the flagship size, each
+    with the launch counts set to 0 just before it: (b) the loader pools,
+    no process left; (c) the forward with the card's topology (K1, K3, K4 as
+    `expected_launches`) and with host-built ones (K3 none), whose warm
+    outputs the probe holds bit-equal; (d) `Trainer.fit` at depths 0, 2, 4,
+    each step's launches as `expected_train_launches`."""
+    from mm2d3d_tpu_torch.flagship import flagship_task
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.tools import autotune
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    iters = AUTOTUNE_ITERS
+    before = set(descendants())
+    rates, rec_w = autotune.probe_workers(iters)
+    left = set(descendants()) - before
+    if left:
+        raise AssertionError(f"16b: processes of the loader pools still running: {left}")
+    log(f"16b workers: {rates} -> {rec_w}; no process left")
+
+    task = flagship_task(device=dev)
+    task.init_params(torch.Generator().manual_seed(0))
+    hosts = autotune.host_batches()
+    devs = [b.to(dev) for b in hosts]
+    with torch.no_grad():
+        hiers = [build_topology(b, 4096, 7)[1] for b in devs]
+    per_fwd = [expected_launches(h) for h in hiers]
+
+    kernels.reset_counts()
+    topo_ms, rec_t = autotune.probe_host_topology(task, hosts, devs, iters)
+    torch.cuda.synchronize()
+    topo_launches = kernels.counts()
+    used = [0] + [i % 2 for i in range(iters)]  # the warm forward, then the timed
+    expected = {k: 0 for k in topo_launches}
+    for i in used:
+        for k, n in per_fwd[i].items():
+            expected[k] += n if k == "propagate" else 2 * n  # host forwards: no K3
+    check_counts(topo_launches, expected, "16c forwards, card and host topologies")
+    log(f"16c host_topology: {topo_ms} -> {rec_t}; warm forwards bit-equal (the probe "
+        f"raises otherwise); launches over {len(used)} card-topology and {len(used)} "
+        f"host-topology forwards {topo_launches} (= expected_launches, K3 only in "
+        "the card's)")
+
+    depths = (0, 2, 4)
+    kernels.reset_counts()
+    fit_ms, rec_p = autotune.probe_prefetch(task, hosts, iters, depths=depths)
+    torch.cuda.synchronize()
+    fit_launches = kernels.counts()
+    expected = {k: 0 for k in fit_launches}
+    steps = 0
+    for _ in range(2 * len(depths)):  # a warm and a timed epoch per depth
+        for i in range(iters):
+            for k, n in expected_train_launches([hiers[i % 2], hiers[::-1][i % 2]]).items():
+                expected[k] += n
+            steps += 1
+    check_counts(fit_launches, expected, "16d Trainer.fit steps")
+    per_step = {k: v // steps for k, v in fit_launches.items()}
+    log(f"16d prefetch: {fit_ms} -> {rec_p}; {steps} train steps, launches "
+        f"{fit_launches} (= expected_train_launches; per step {per_step})")
+    result = {"measured": {
+        "loader_scans_per_sec_by_workers": rates,
+        "fwd_ms_by_topology": {k: round(v, 1) for k, v in topo_ms.items()},
+        "fit_step_ms_by_prefetch": {k: round(v, 1) for k, v in fit_ms.items()}},
+        "recommended": {**rec_w, **rec_t, **rec_p}}
+    check_autotune_result(result, "16b-d probes")
+    del task
+    return {"result": result, "topology_launches": topo_launches,
+            "topology_forwards": 2 * len(used), "fit_launches": fit_launches,
+            "per_step": per_step}
+
+
+def run_phase16(dev) -> dict:
+    t0 = time.perf_counter()
+    log(f"phase 16a: python -m mm2d3d_tpu_torch.tools.doctor --perf --iters "
+        f"{AUTOTUNE_ITERS}")
+    cli = run_doctor_perf()
+    log(f"phase 16b-d: the autotune probes in process, --iters {AUTOTUNE_ITERS}")
+    probes = run_autotune_probes(dev)
+    seconds = time.perf_counter() - t0
+    log(f"phase 16: {seconds:.1f} s")
+    return {"cli": cli, "probes": probes, "seconds": seconds}
+
+
+def live_processes():
+    """(pid, parent pid, session id) of every live process, read from
+    /proc; zombies are left out, they end with their parent."""
     for d in os.listdir("/proc"):
         if not d.isdigit():
             continue
@@ -2825,9 +2992,14 @@ def descendants() -> list:
                 stat = f.read()
         except OSError:
             continue  # ended meanwhile
-        state, ppid = stat[stat.rfind(")") + 2:].split()[:2]
-        if state != "Z":
-            parent[int(d)] = int(ppid)
+        fields = stat[stat.rfind(")") + 2:].split()
+        if fields[0] != "Z":
+            yield int(d), int(fields[1]), int(fields[3])
+
+
+def descendants() -> list:
+    """Live processes below this one (children, their children, ...)."""
+    parent = {pid: ppid for pid, ppid, _ in live_processes()}
     out, frontier = [], [os.getpid()]
     while frontier:
         pid = frontier.pop()
@@ -2969,6 +3141,12 @@ def run_all(dev, cli_root: str) -> int:
     if left:
         raise AssertionError(f"processes still running after phase 15: {left}")
 
+    log("phase 16: the host self-validation tool (tools/autotune.py, doctor --perf)")
+    p16 = run_phase16(dev)
+    left = stop_processes()
+    if left:
+        raise AssertionError(f"processes still running after phase 16: {left}")
+
     from mm2d3d_tpu_torch.ops import kernels
 
     main_case = {"propagate": "L0 ", "maxpool": f"({BATCH}, 240, 400, 64) float32",
@@ -3019,6 +3197,8 @@ def run_all(dev, cli_root: str) -> int:
             "learning_check_launches_per_step": st["learn"]["check"]["per_step"][name],
             "b32_eval_launches_per_forward": p15["eval"]["per_forward"][name],
             "b24_train_launches_per_step": p15["train"]["launches"][name],
+            "autotune_topology_launches": p16["probes"]["topology_launches"][name],
+            "autotune_fit_launches_per_step": p16["probes"]["per_step"][name],
         })
     log(f"slice: {slice_ms:.2f} ms/batch of {BATCH}, {BATCH * 1e3 / slice_ms:.1f} scans/s")
     log(f"train: {train_ms:.2f} ms/step of 2 x {BATCH}, "
@@ -3057,6 +3237,9 @@ def run_all(dev, cli_root: str) -> int:
         f"{bench['stage_transfer_ms_per_batch']:.2f} ms, train step "
         f"{bench['stage_device_step_ms']:.2f} ms; the CLI step (phase 10) "
         f"{cli_ms:.2f} ms; phase 15 {p15['seconds']:.1f} s")
+    log("autotune (phase 16): doctor --perf " + json.dumps(p16["cli"]["result"])
+        + "; in process " + json.dumps(p16["probes"]["result"])
+        + f"; phase 16 {p16['seconds']:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -90,16 +90,45 @@ class ScanListDataset:
         out["pseudo_label_ensemble"] = ps["pseudo_label_ensemble"][idxs]
 
 
+def _class_counts(dataset: ScanListDataset) -> np.ndarray:
+    """Points per merged class over every scan of `dataset`."""
+    counts = np.zeros(dataset.num_classes, np.int64)
+    for rec in dataset.data:
+        labels = dataset.map_labels(rec["seg_labels"])
+        counts += np.bincount(labels[labels != IGNORE],
+                              minlength=dataset.num_classes)
+    return counts
+
+
 def compute_class_weights(dataset: ScanListDataset) -> np.ndarray:
     """Log-smoothed class weights (nuscenes_dataloader.py:421-441):
     log(5 * total / per_class), normalized by the minimum."""
-    num_classes = dataset.num_classes
-    counts = np.zeros(num_classes, np.int64)
-    for rec in dataset.data:
-        labels = dataset.map_labels(rec["seg_labels"])
-        counts += np.bincount(labels[labels != IGNORE], minlength=num_classes)
+    counts = _class_counts(dataset)
     w = np.log(5 * counts.sum() / np.maximum(counts, 1))
     return w / w.min()
+
+
+def compute_stats(dataset: ScanListDataset, out_dir: Optional[str] = None):
+    """Per-class point-count histogram (reference nuscenes_dataloader.py
+    compute_stats); with `out_dir`, also a bar plot of the split there
+    (matplotlib, imported only then)."""
+    counts = _class_counts(dataset)
+    if out_dir is not None:
+        import os
+
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        os.makedirs(out_dir, exist_ok=True)
+        fig, ax = plt.subplots(figsize=(8, 4))
+        ax.barh(dataset.merged_class_names, counts)
+        ax.grid(axis="x")
+        fig.tight_layout()
+        fig.savefig(osp.join(out_dir, f"{'_'.join(dataset.split)}_stats.png"))
+        plt.close(fig)
+    return counts
 
 
 # --------------------------------------------------------------------------

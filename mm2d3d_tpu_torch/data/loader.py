@@ -200,6 +200,19 @@ class Loader:
             yield self._finish(samples, n_pad)
         self._inflight = None
 
+    def iterate(self, num_iterations: int) -> Iterator[PointBatch]:
+        """Yield exactly `num_iterations` batches, cycling epochs with
+        reshuffling (the reference's IterationBasedBatchSampler,
+        lib/utils/sampler.py)."""
+        produced = 0
+        while produced < num_iterations:
+            for batch in self:
+                yield batch
+                produced += 1
+                if produced >= num_iterations:
+                    return
+            self.set_epoch(self.epoch + 1)
+
     def close(self):
         """Drain the results in flight, then close the pool; a worker still
         wedged after 30 s is terminated (with the pipe drained, terminate no

@@ -27,6 +27,10 @@ def register_model(name: str, signature: Optional[Tuple] = None,
     return deco
 
 
+def available_models() -> list:
+    return sorted(_REGISTRY)
+
+
 def get_entry(name: str) -> Dict[str, Any]:
     if name in _REGISTRY:
         return _REGISTRY[name]

@@ -1,6 +1,6 @@
 """Data-directory doctor: validate preprocessed data BEFORE a run (port of
 `mm2d3d_tpu/tools/doctor.py`: the same checks, problems and warnings; its
-`--perf` option, which runs the TPU tuning tool, stays with the JAX package).
+`--perf` option runs the port's host self-validation, `tools/autotune.py`).
 
 The first real-data run in a new environment should fail with an
 actionable message, not deep inside a training step.  This checks a
@@ -10,12 +10,13 @@ against the schema the datasets actually consume
 `data/a2d2.py:153-159`, `data/virtual_kitti.py:111-138`; reference
 consumption: the reference's ``lib/dataset/nuscenes_dataloader.py:96-162``).
 
-Usage (either form):
+Usage (any form):
     python -m mm2d3d_tpu_torch.tools.doctor --config configs/config.yaml
     python -m mm2d3d_tpu_torch.tools.doctor --preprocess-dir /data/nuscenes \\
         --scenario nuscenes --splits train_usa train_singapore \\
         [--data-dir /data/nuscenes] [--resize 400 225] \\
         [--image-cache-dir ...] [--pselab ...]
+    python -m mm2d3d_tpu_torch.tools.doctor --perf [autotune options]
 
 Exit code 0 = all checks passed; 1 = problems found (each printed with the
 file / record index and a suggested fix).
@@ -431,6 +432,15 @@ def run_from_config(cfg: Dict, sample: int = 5) -> int:
 
 
 def main(argv=None):
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if "--perf" in argv:
+        # forward everything else verbatim to autotune (parsing here would
+        # let doctor's positional `overrides` swallow autotune's values)
+        argv.remove("--perf")
+        from .autotune import main as autotune_main
+
+        return autotune_main(argv)
+
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--config", help="experiment config (checks every "
                     "configured split of both domains)")
@@ -445,6 +455,11 @@ def main(argv=None):
     ap.add_argument("--pselab")
     ap.add_argument("--sample", type=int, default=5,
                     help="records checked per split")
+    ap.add_argument("--perf", action="store_true",
+                    help="re-measure the host-dependent performance defaults "
+                    "(host topology / prefetch / workers) on THIS machine and "
+                    "print the recommended config (tools.autotune; handled "
+                    "above, listed here for --help)")
     args = ap.parse_args(argv)
 
     if args.config:

@@ -90,6 +90,13 @@ class LossComposer:
                 "args": dict(item.get("args", {})),
             })
 
+    def update_loss_params(self, name: str, target: str, **kwargs):
+        """Update the `args` of every entry named `name` for `target` (for
+        example `weight=` of the cross entropy)."""
+        for e in self._entries:
+            if e["name"] == name and e["target"] == target:
+                e["args"].update(kwargs)
+
     def targets(self):
         """The set of loss targets this composer serves."""
         return {e["target"] for e in self._entries}

@@ -92,6 +92,8 @@ def test_port_imports_without_jax():
         "import mm2d3d_tpu_torch.run, mm2d3d_tpu_torch.train.trainer\n"
         "import mm2d3d_tpu_torch.tools.bench_loader, mm2d3d_tpu_torch.tools.mlflow_ops\n"
         "import mm2d3d_tpu_torch.data.preprocess.nuscenes_lidarseg\n"
+        "import mm2d3d_tpu_torch.tools.autotune, mm2d3d_tpu_torch.tools.doctor\n"
+        "import mm2d3d_tpu_torch.models.torch_import\n"
         "from mm2d3d_tpu_torch.ops import kernels\n"
         "assert sorted(kernels.all_kernels()) == ['bandmm', 'bandmm_dw', 'head2d', "
         "'maxpool', 'propagate', 'tapsum']\n"
