@@ -62,7 +62,14 @@ its own session (exit 0, the JAX tool's keys without donation, each
 recommendation in its set, no process left), then the tool's probes in
 this process (loader pools, no process left; forwards with the card's and
 host-built topologies, bit-equal, K3 only in the card's; `Trainer.fit` at
-prefetch depths 0, 2 and 4, launches per step as predicted).  Prints,
+prefetch depths 0, 2 and 4, launches per step as predicted).  Phase 17
+holds the probe kernels K7-K10 (ports of the TPU probes'
+`pallas_call`s) against their plain versions, K7-K9 bit for bit at the
+probes' sizes and edges, K10 in both E builds and tiles within 1e-4 *
+max|plain| and bit-stable, then runs the two probe tools once
+(`mm2d3d_tpu_torch.tools.exp_dma_gather`, `exp_bandmm_variants`) and
+counts the kernels' launches there; every path above launches none of
+them.  Prints,
 in its last lines, the card (nvidia-smi name and power
 limit), one JSON line of kernel results, and one JSON line
 {"ok": true, "device": {...}}.  Any failed phase raises, and
@@ -87,9 +94,10 @@ import torch
 import torch.nn.functional as F
 
 from mm2d3d_tpu_torch.tools.kernel_cases import (
-    BATCH, cuda_ms, expected_launches, expected_train_launches, flagship_batch)
+    BATCH, PROBE_KERNELS, cuda_ms, expected_launches, expected_train_launches,
+    flagship_batch)
 
-K1_REL_TOL = 1e-4  # max |kernel - plain| <= 1e-4 * max |plain| (K1, K2, K5, K6)
+K1_REL_TOL = 1e-4  # max |kernel - plain| <= 1e-4 * max |plain| (K1, K2, K5, K6, K10)
 LOGIT_REL_TOL = 1e-3  # card vs CPU, fp32 forward and train step
 TIE_GAP = 1e-3
 COMPARE_BATCH = 2  # scans per domain of phase 7's card-vs-CPU train step
@@ -809,11 +817,11 @@ def expected_optin_launches(hier) -> dict:
     topology's build included: K3 at every level but the coarsest (the
     tables only, h1 = 0), K4 once per encoder, K5 once, K6 once per
     submanifold conv (input conv, encoder and decoder blocks), K1 once per
-    strided conv."""
+    strided conv; the probe kernels never."""
     n = len(hier.levels)
     assert all(lvl.slot_src is None for lvl in hier.levels)
     return {"propagate": n - 1, "maxpool": 2, "head2d": 1, "tapsum": 2 * n,
-            "bandmm": 2 * (n - 1), "bandmm_dw": 0}
+            "bandmm": 2 * (n - 1), "bandmm_dw": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
 
 
 def expected_optin_train_launches(hiers) -> dict:
@@ -822,7 +830,7 @@ def expected_optin_train_launches(hiers) -> dict:
     gradient); the dense convs' weight gradients and K5's backward are
     plain PyTorch, as the JAX package's are XLA's."""
     out = dict.fromkeys(("propagate", "maxpool", "head2d", "tapsum", "bandmm",
-                         "bandmm_dw"), 0)
+                         "bandmm_dw", *PROBE_KERNELS), 0)
     for hier in hiers:
         ev = expected_optin_launches(hier)
         for k in ("propagate", "maxpool", "head2d"):
@@ -1409,7 +1417,7 @@ def run_kitti_config(dev, config: str, roots: dict, root: str, extra=()):
 
     def expected(kept):
         exp = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0,
-               "head2d": 0, "tapsum": 0}
+               "head2d": 0, "tapsum": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
         for kind, hier in kept:
             one = (expected_launches(hier) if kind in ("eval", "viz") else
                    expected_train_launches([hier], host_built=kind == "host"))
@@ -2156,7 +2164,7 @@ def run_cli_data_parallel(dev) -> dict:
 
         def expected(r):
             exp = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0,
-                   "head2d": 0, "tapsum": 0}
+                   "head2d": 0, "tapsum": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
             for t in r["topologies"]:
                 for k, n in t["expected"].items():
                     exp[k] += n
@@ -2286,7 +2294,7 @@ def run_data_parallel(dev) -> dict:
 
 # launches per generated scan: one eval forward at batch 1 (PERF.md, Findings)
 GEN_PER_SCAN = {"bandmm": 51, "propagate": 6, "maxpool": 2, "bandmm_dw": 0,
-                "head2d": 0, "tapsum": 0}
+                "head2d": 0, "tapsum": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
 PSELAB_MARGIN, PSELAB_PROB_TOL = 1e-3, 1e-4  # card vs CPU records, fp32
 FIG_STEPS = 2
 FIG_MIN_POINTS = 100  # points alone under their markers in 14c's figure
@@ -2981,6 +2989,207 @@ def run_phase16(dev) -> dict:
     return {"cli": cli, "probes": probes, "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# phase 17: the probe kernels K7-K10 and the two probe tools
+# --------------------------------------------------------------------------
+
+def gathered_bytes(src, ids, rows_per_id: int = 1) -> int:
+    """Bytes of the rows of src that the ids reach, each once (an id outside
+    the rows reads nothing): what a gather must read at this data."""
+    u = torch.unique(ids)
+    n = int(((u >= 0) & (u < src.shape[0] // rows_per_id)).sum())
+    return n * rows_per_id * src.shape[1] * src.element_size()
+
+
+def check_k7(res: Results, dev) -> None:
+    """K7 at the probe tool's three cases, G = 8 (the TPU's grain) and G = 1
+    at equal bytes, and G = 1 on the slot-width rows of the tool's reading
+    A (the same function as `torch.index_select`), bit-equal to the plain
+    version; ids outside the groups give zeros; `torch.index_select` of the
+    same rows beside it."""
+    import numpy as np
+
+    from mm2d3d_tpu_torch.ops.kernels.exp_gather import (
+        group_gather, group_gather_ref, group_order)
+    from mm2d3d_tpu_torch.tools import exp_dma_gather as D
+
+    def add(case, x, ids, g, tile, rows):
+        out = group_gather(x, ids, g, tile)
+        D.check_equal(out, torch.index_select(x, 0, rows), f"K7 {case} vs index_select")
+        ms = cuda_ms(lambda: group_gather(x, ids, g, tile))
+        plain = cuda_ms(lambda: group_gather_ref(x, ids, g, tile), reps=5)
+        library = cuda_ms(lambda: torch.index_select(x, 0, rows))
+        res.add("exp_group_gather", case, 0.0, 0.0, ms, plain,
+                bound(nbytes(ids, out) + gathered_bytes(x, ids, g)), library)
+
+    for h, v, ci in D.CASES:
+        rng = np.random.RandomState(17)
+        gi = D.group_inputs(rng, h, v, dev)
+        x = gi["x"]
+        for g in D.GROUPS:
+            tile = D.T * 8 // g
+            ids = gi[g].clone()
+            ids[0, :3] = torch.tensor([-1, x.shape[0] // g, 2**31 - 1])  # misses
+            D.check_equal(group_gather(x, ids, g, tile), group_gather_ref(x, ids, g, tile),
+                          f"K7 G={g} with misses")
+            ids = gi[g]
+            rows = (group_order(ids, tile).long()[:, None] * g
+                    + torch.arange(g, device=dev)).reshape(-1)
+            add(f"H={h} V={v} Ci={ci} G={g} ({ids.numel()} ids, 128 lanes)", x, ids, g,
+                tile, rows)
+        xs = D.bf16(rng, v, ci, dev=dev)
+        idx = D.ints(rng.randint(0, v, (h, v)), dev)
+        add(f"H={h} V={v} Ci={ci} G=1 on A's rows", xs, idx, 1, v, idx.reshape(-1))
+
+
+def check_k8(res: Results, dev) -> None:
+    """K8 at the three cases (Ci 16, 32, 48), w = 1024 and 2048, bit-equal;
+    windows outside x give zeros; a window split into chunks; a misaligned
+    x refused."""
+    import numpy as np
+
+    from mm2d3d_tpu_torch.ops.kernels.exp_gather import window_copy, window_copy_ref
+    from mm2d3d_tpu_torch.tools import exp_dma_gather as D
+
+    for h, v, ci in D.CASES:
+        rng = np.random.RandomState(18)
+        x = D.bf16(rng, v, ci, dev=dev)
+        for w in D.WINDOWS:
+            n = max(h * v // w, 1)
+            offs = D.ints(rng.randint(0, (v - w) // 8, (n,)) * 8, dev)
+            edge = offs.clone()
+            edge[:3] = torch.tensor([-8, v - w + 8, v - w])  # outside, outside, last
+            for chunk in (None, 20_000):  # one copy per window; chunks of 20 KB
+                kw = {} if chunk is None else {"max_chunk_bytes": chunk}
+                D.check_equal(window_copy(x, edge, w, **kw), window_copy_ref(x, edge, w),
+                              f"K8 Ci={ci} w={w} chunk {chunk}")
+            out = window_copy(x, offs, w)
+            rows = (offs.long()[:, None] + torch.arange(w, device=dev)).reshape(-1)
+            ms = cuda_ms(lambda: window_copy(x, offs, w))
+            plain = cuda_ms(lambda: window_copy_ref(x, offs, w), reps=5)
+            library = cuda_ms(lambda: torch.index_select(x, 0, rows))
+            res.add("exp_window_copy", f"H={h} V={v} Ci={ci} w={w} ({n} windows)",
+                    0.0, 0.0, ms, plain,
+                    bound(nbytes(offs, out) + gathered_bytes(x, rows)), library)
+    skew = x.reshape(-1)[8:8 + (v - 1) * ci].reshape(v - 1, ci)  # 16 B off
+    try:
+        window_copy(x.reshape(-1)[1:1 + (v - 1) * ci].reshape(v - 1, ci), offs, 8)
+    except ValueError as e:
+        log(f"  K8 refuses a misaligned x: {e}")
+    else:
+        raise AssertionError("K8 accepted a misaligned x")
+    D.check_equal(window_copy(skew, offs[:4], 8), window_copy_ref(skew, offs[:4], 8),
+                  "K8 at a 16-byte offset")
+
+
+def check_k9(res: Results, dev) -> None:
+    """K9 at the three cases, windows of 1024 and 2048 rows, bit-equal; ids
+    outside the window give zeros."""
+    import numpy as np
+
+    from mm2d3d_tpu_torch.ops.kernels.exp_gather import window_gather, window_gather_ref
+    from mm2d3d_tpu_torch.tools import exp_dma_gather as D
+
+    for h, v, ci in D.CASES:
+        rng = np.random.RandomState(19)
+        x = D.bf16(rng, v, ci, dev=dev)
+        for w in D.WINDOWS:
+            xw = x[:w]
+            idx = D.ints(rng.randint(0, w, (h, v)), dev)
+            edge = idx.clone()
+            edge[0, :2] = torch.tensor([-1, w])
+            D.check_equal(window_gather(xw, edge), window_gather_ref(xw, edge),
+                          f"K9 Ci={ci} w={w} with misses")
+            out = window_gather(xw, idx)
+            flat = idx.reshape(-1)
+            ms = cuda_ms(lambda: window_gather(xw, idx))
+            plain = cuda_ms(lambda: window_gather_ref(xw, idx), reps=5)
+            library = cuda_ms(lambda: torch.index_select(xw, 0, flat))
+            res.add("exp_window_gather", f"H={h} V={v} Ci={ci} w={w}", 0.0, 0.0, ms,
+                    plain, bound(nbytes(out, idx) + gathered_bytes(xw, idx)), library)
+
+
+def check_k10(res: Results, dev) -> None:
+    """K10 at the probe's size (V = 65,536, H = 3, Ci = Co = 16, K = 27,
+    real-table taps), both E builds and both tiles, within 1e-4 *
+    max|plain| and bit-stable over two calls; then V not a multiple of the
+    tile (65,496, and 1,001: rows not 16-byte aligned), tiles whose rows
+    all miss (compact E with the centre's band only, or none without xm)
+    and the TPU probe's own tap recipe (duplicates, tap 13)."""
+    import numpy as np
+
+    from mm2d3d_tpu_torch.ops.kernels.exp_bandmm import (
+        E_BUILDS, VOXELS_PER_BLOCK, band_apply, band_apply_ref)
+    from mm2d3d_tpu_torch.tools import exp_bandmm_variants as BV
+
+    def check(xm, x, tap, w, what, time_it=False):
+        ref = band_apply_ref(xm, x, tap, w)
+        tol = K1_REL_TOL * float(ref.abs().max())
+        plain = cuda_ms(lambda: band_apply_ref(xm, x, tap, w), reps=5) if time_it else 0.0
+        for e_build in E_BUILDS:
+            for voxels in VOXELS_PER_BLOCK:
+                out = band_apply(xm, x, tap, w, e_build, voxels)
+                err = float((out - ref).abs().max())
+                if not torch.equal(out, band_apply(xm, x, tap, w, e_build, voxels)):
+                    raise AssertionError(f"K10 {what} {e_build} {voxels}: two calls differ")
+                case = f"{what} E={e_build} {voxels} voxels/block V={x.shape[2]}"
+                if not time_it:
+                    if not err <= tol:
+                        raise AssertionError(f"K10 {case}: max|d| {err} > {tol}")
+                    continue
+                ms = cuda_ms(lambda: band_apply(xm, x, tap, w, e_build, voxels))
+                hits = int(((tap >= 0) & (tap < BV.K)).sum())
+                n_bytes = nbytes(xm, tap, w, out) + hits * x.shape[1] * x.element_size()
+                res.add("exp_bandmm", case, err, tol, ms, plain,
+                        bound(n_bytes, 2 * w.shape[0] * x.shape[1] * (hits + x.shape[2]),
+                              torch.bfloat16))
+
+    xm, x, tap, w = BV.inputs(dev, seed=17)
+    check(xm, x, tap, w, "real-table", time_it=True)
+    for v in (65496, 1001):
+        check(*BV.inputs(dev, seed=v, v=v), "real-table")
+    tap_miss = tap.clone()
+    tap_miss[:, 128:1024] = BV.K  # whole tiles of 64 and 128 voxels miss
+    check(xm, x, tap_miss, w, "tiles all missing")
+    check(None, x, tap_miss, w, "tiles all missing, no centre")
+    rng = np.random.RandomState(20)
+    taps = np.sort(rng.randint(0, 27, size=(3, x.shape[2])), axis=0).astype(np.int32)
+    taps[rng.rand(3, x.shape[2]) > 0.8] = 27
+    check(xm, x, torch.from_numpy(taps).to(dev), w, "TPU probe taps")
+    log("  K10 edges: V 65,496 and 1,001, tiles all missing (with and without "
+        "the centre), the TPU probe's tap recipe: within tolerance, bit-stable")
+
+
+def run_phase17(res: Results, dev) -> dict:
+    """K7-K10 against their plain versions, then the two probe tools once at
+    the TPU probes' sizes, with the kernels' launches counted over the
+    tools' runs only."""
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.tools import exp_bandmm_variants, exp_dma_gather
+
+    t0 = time.perf_counter()
+    check_k7(res, dev)
+    check_k8(res, dev)
+    check_k9(res, dev)
+    check_k10(res, dev)
+    torch.cuda.synchronize()
+    checks_s = time.perf_counter() - t0
+    log("phase 17b: python -m mm2d3d_tpu_torch.tools.exp_dma_gather, "
+        "python -m mm2d3d_tpu_torch.tools.exp_bandmm_variants (in process)")
+    kernels.reset_counts()
+    dma = exp_dma_gather.run(dev)
+    band = exp_bandmm_variants.run(dev)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    for name in PROBE_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name}: no launch in the probe tools' run")
+    seconds = time.perf_counter() - t0
+    log(f"phase 17: launches over the tools' runs {launches}; checks "
+        f"{checks_s:.1f} s, phase 17 {seconds:.1f} s")
+    return {"launches": launches, "dma": dma, "band": band, "seconds": seconds}
+
+
 def live_processes():
     """(pid, parent pid, session id) of every live process, read from
     /proc; zombies are left out, they end with their parent."""
@@ -3147,13 +3356,21 @@ def run_all(dev, cli_root: str) -> int:
     if left:
         raise AssertionError(f"processes still running after phase 16: {left}")
 
+    log("phase 17: the probe kernels K7-K10 vs their plain versions, then the "
+        "probe tools (tools/exp_dma_gather.py, tools/exp_bandmm_variants.py)")
+    p17 = run_phase17(res, dev)
+
     from mm2d3d_tpu_torch.ops import kernels
 
     main_case = {"propagate": "L0 ", "maxpool": f"({BATCH}, 240, 400, 64) float32",
                  "bandmm": "enc L0 tier1+center H=3 bfloat16",
                  "bandmm_dw": "enc L0 tier1+center H=3 bfloat16",
                  "tapsum": "enc L0 fwd Ci=16 Co=16 bfloat16",
-                 "head2d": f"({BATCH}, 240, 400, 64)x3 bfloat16"}
+                 "head2d": f"({BATCH}, 240, 400, 64)x3 bfloat16",
+                 "exp_group_gather": "H=3 V=65536 Ci=16 G=8",
+                 "exp_window_copy": "H=3 V=65536 Ci=16 w=1024",
+                 "exp_window_gather": "H=3 V=65536 Ci=16 w=1024",
+                 "exp_bandmm": "real-table E=full 64 voxels/block V=65536"}
     # each kernel's launches on the path it runs on: the eval forward of
     # phase 4 (K1, K3, K4), the train step of phase 6 (K2), the opt-in eval
     # forward of phase 8 (K5, K6); "cli_launches": phase 10's fit through
@@ -3163,10 +3380,12 @@ def run_all(dev, cli_root: str) -> int:
     # "options_launches": phase 12e's 4-step fit with residual blocks;
     # "child_slot_case": K1 / K2 over the child slots, down L0 -> L1, tier 1
     # (phase 12d); "dp_cli_launches_per_rank": phase 13c's fit through the
-    # CLI, each of the two ranks
+    # CLI, each of the two ranks; the probe kernels K7-K10: phase 17's run
+    # of the probe tools (0 on every path above)
     path_launches = {"bandmm_dw": train_launches["bandmm_dw"],
                      "tapsum": optin_launches["tapsum"],
-                     "head2d": optin_launches["head2d"]}
+                     "head2d": optin_launches["head2d"],
+                     **{k: p17["launches"][k] for k in PROBE_KERNELS}}
     rows = []
     for name, k in kernels.all_kernels().items():
         case = next(c for c in res.cases if c[0] == name and c[1].startswith(main_case[name]))
@@ -3240,6 +3459,9 @@ def run_all(dev, cli_root: str) -> int:
     log("autotune (phase 16): doctor --perf " + json.dumps(p16["cli"]["result"])
         + "; in process " + json.dumps(p16["probes"]["result"])
         + f"; phase 16 {p16['seconds']:.1f} s")
+    log("probe tools (phase 17): " + json.dumps({"exp_dma_gather": p17["dma"],
+                                                 "exp_bandmm_variants": p17["band"]})
+        + f"; phase 17 {p17['seconds']:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

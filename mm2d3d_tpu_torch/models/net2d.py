@@ -1,5 +1,5 @@
 """Dual-encoder 2D U-Net (RGB + sparse depth) with 2D -> 3D lifting
-(port of `mm2d3d_tpu/models/net2d.py`, `with_features=False`).
+(port of `mm2d3d_tpu/models/net2d.py`).
 
 Public layout is the JAX package's: images (B, H, W, C), logits
 (B, H, W, nc) and lifted (B, N, nc).  Inside, tensors are NCHW in
@@ -11,6 +11,10 @@ the counterpart of the JAX net's `pallas_head`, the head's conv, bias, crop
 and pool run in the K5 kernel (`ops.kernels.head2d.HeadPool`) on the three
 decoder-tail pieces, which are then never concatenated; wherever
 `head2d.supports` refuses the shapes, the unfused head runs, as in JAX.
+`forward(..., with_features=True)`, the default as in JAX, also returns
+`segm_last`, the 64-channel `dec_conv_stage1` map (B, h, w, 64) in fp32;
+the train step and the eval forward pass `with_features=False`, as the JAX
+train step does, and get None.
 Train and eval mode follow `nn.Module.train()`; in train mode both
 encoders' dropout draws from the generator passed to `forward`.
 `frozen_batch_norm` freezes the BatchNorms of the RGB stem and encoder
@@ -100,10 +104,13 @@ class Net2DSeg(nn.Module):
     def forward(self, img: torch.Tensor, depth: torch.Tensor,
                 img_indices: torch.Tensor, point_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                ) -> Tuple[Dict[str, torch.Tensor], None, Dict[str, torch.Tensor]]:
+                with_features: bool = True,
+                ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor],
+                           Dict[str, torch.Tensor]]:
         """img (B, H, W, 3), depth (B, H, W, 1) float; img_indices (B, N, 2)
         int32; point_mask (B, N) bool; `generator` (on the device) feeds the
-        dropout in train mode."""
+        dropout in train mode.  Returns (preds, segm_last, aux): segm_last
+        (B, H, W, 64) fp32 with `with_features`, else None."""
         h, w = img.shape[1], img.shape[2]
         pad_h, pad_w = (-h) % 16, (-w) % 16
         img = F.pad(img.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h))
@@ -128,6 +135,7 @@ class Net2DSeg(nn.Module):
         w12 = torch.einsum("ochw,od->dchw", self.dec_conv_stage1.weight, k_heads)
         b12 = self.dec_conv_stage1.bias @ k_heads
         cd = self.compute_dtype
+        x_cat = None
         if self.fused_head and head2d.supports(img.shape[2], img.shape[3], h, w,
                                                2 * nc):
             # NHWC views of the channels_last pieces; HWIO weights
@@ -144,6 +152,13 @@ class Net2DSeg(nn.Module):
                              count_include_pad=True)
             y = y.permute(0, 2, 3, 1)  # (B, h, w, 2nc)
 
+        segm_last = None
+        if with_features:
+            if x_cat is None:
+                x_cat = torch.cat([dep[0], x, rgb[0]], 1)
+            segm_last = (conv2d(x_cat, self.dec_conv_stage1.weight, None, 1, 1, cd).float()
+                         + self.dec_conv_stage1.bias[None, :, None, None])
+            segm_last = segm_last[:, :, :h, :w].permute(0, 2, 3, 1)  # (B, h, w, 64)
         seg_logit_2d = y[..., :nc] + self.head_conv.bias
         seg_logit_avg_2d = y[..., nc:] + self.aux_conv.bias
         preds = {
@@ -155,4 +170,4 @@ class Net2DSeg(nn.Module):
                                                  point_mask),
             "seg_logit_avg_2d": seg_logit_avg_2d,
         }
-        return preds, None, aux
+        return preds, segm_last, aux

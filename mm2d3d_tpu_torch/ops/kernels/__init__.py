@@ -139,7 +139,9 @@ def register(kernel: Kernel) -> Kernel:
 
 def all_kernels() -> Dict[str, Kernel]:
     # importing the kernel modules registers them
-    from . import bandmm, bandmm_dw, head2d, maxpool, propagate, tapsum  # noqa: F401
+    from . import (  # noqa: F401
+        bandmm, bandmm_dw, exp_bandmm, exp_gather, head2d, maxpool, propagate, tapsum,
+    )
 
     return dict(_REGISTRY)
 

@@ -26,6 +26,10 @@ FLAGSHIP_BATCH = dict(height=225, width=400, n_points=8192, num_classes=6,
 KITTI_BATCH = 16
 KITTI_SCAN = dict(height=302, width=480, n_points=10240, num_classes=6,
                   full_scale=4096, variant="kitti")
+# the probe kernels K7-K10 (`ops/kernels/exp_gather.py`, `exp_bandmm.py`):
+# only the probe tools launch them, never a path of the system
+PROBE_KERNELS = ("exp_group_gather", "exp_window_copy", "exp_window_gather",
+                 "exp_bandmm")
 SLEEP_CYCLES = 100_000_000  # ~50-300 ms of SM clock: longer than the queued calls' dispatch
 
 
@@ -77,14 +81,15 @@ def expected_launches(hier, residual: bool = False) -> dict:
     but the coarsest, K4 once per encoder, K1 once per tier of every
     submanifold conv (input conv, encoder and decoder blocks, two per
     block with `residual`) plus once per strided conv, and once more for
-    a down conv over child slots (its heavy tier)."""
+    a down conv over child slots (its heavy tier); the probe kernels
+    never."""
     lv = hier.levels
     n = len(lv)
     blocks = sum(tiers(l) for l in lv) + sum(tiers(l) for l in lv[:-1])
     k1 = tiers(lv[0]) + (2 if residual else 1) * blocks
     k1 += sum(3 if t.cslot_src is not None else 2 for t in hier.transitions)
     return {"propagate": n - 1, "maxpool": 2, "bandmm": k1, "bandmm_dw": 0,
-            "head2d": 0, "tapsum": 0}
+            "head2d": 0, "tapsum": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
 
 
 def expected_train_launches(hiers, residual: bool = False,
@@ -97,7 +102,7 @@ def expected_train_launches(hiers, residual: bool = False,
     the count holds too: the down conv's two K1 and two K2 calls, the up
     conv's input gradient's two K1 calls."""
     out = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0, "head2d": 0,
-           "tapsum": 0}
+           "tapsum": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
     for hier in hiers:
         ev = expected_launches(hier, residual)
         out["bandmm"] += 2 * ev["bandmm"]

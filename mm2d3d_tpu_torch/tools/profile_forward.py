@@ -209,7 +209,7 @@ def main(argv=None) -> int:
         stages = {
             "topology": lambda: topology(b),
             "2D branch": lambda: task.model2d(b.img, b.depth, b.img_indices,
-                                              b.point_mask),
+                                              b.point_mask, with_features=False),
             "3D branch": lambda: task.model3d(feats, *topo),
             "forward (4 batches rotating)": forward,
         }

@@ -227,7 +227,7 @@ class MM2D3DTask:
             topo = self.build_topology(batch)
         _, feats, labels, mask, _ = flatten_points(batch)
         p2, _, _ = self.model2d(batch.img, batch.depth, batch.img_indices,
-                                batch.point_mask)
+                                batch.point_mask, with_features=False)
         p3, _, _ = self.model3d(feats, *topo)
         flat2 = p2["seg_logit"].reshape(-1, self.num_classes).float()
         flat3 = p3["seg_logit"].float()
@@ -324,7 +324,7 @@ class MM2D3DTask:
 
         # source domain
         p2s, _, a2s = self.model2d(src.img, src.depth, src.img_indices,
-                                   src.point_mask, generator)
+                                   src.point_mask, generator, with_features=False)
         p3s, _, a3s = self.model3d(feats_src, *topo_src)
         flat2s = p2s["seg_logit"].reshape(-1, nc)
         seg_loss_src_2d = self._seg_loss(flat2s, labels_src, mask_src)
@@ -335,7 +335,7 @@ class MM2D3DTask:
 
         # target domain
         p2t, _, a2t = self.model2d(trg.img, trg.depth, trg.img_indices,
-                                   trg.point_mask, generator)
+                                   trg.point_mask, generator, with_features=False)
         p3t, _, a3t = self.model3d(feats_trg, *topo_trg)
         flat2t = p2t["seg_logit"].reshape(-1, nc)
         xm_trg_2d = kl_consistency(a2t["seg_logit_avg"].reshape(-1, nc),

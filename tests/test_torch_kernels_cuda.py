@@ -549,3 +549,103 @@ def test_host_topology_on_card_equals_the_cards_build(dev, profile):
                 assert x.device == y.device and torch.equal(x, y), f.name
                 n += 1
     assert n > 50
+
+
+# ---- the probe kernels K7-K10 (ops/kernels/exp_gather.py, exp_bandmm.py) ----
+
+def _bf16_dev(r, dev, *shape):
+    return torch.from_numpy(r.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("group,tile", [(8, 512), (1, 4096), (2, 64)])
+def test_group_gather_kernel_bit_equal(dev, group, tile):
+    """K7 at the TPU's grain, per row and between, ids outside the groups
+    included: bit-equal to the plain version; one launch per call."""
+    from mm2d3d_tpu_torch.ops.kernels import exp_gather as G
+
+    r = np.random.RandomState(group)
+    x = _bf16_dev(r, dev, 8192, 128)
+    ids = torch.from_numpy(r.randint(-2, 8192 // group + 2, (3, 2 * tile))
+                           .astype(np.int32)).to(dev)
+    before = G.GROUP_KERNEL.launches
+    out = G.group_gather(x, ids, group, tile)
+    assert G.GROUP_KERNEL.launches == before + 1
+    assert torch.equal(out, G.group_gather_ref(x, ids, group, tile))
+    with pytest.raises(ValueError):
+        G.group_gather(x[:, :4].contiguous(), ids, 1, tile)  # 8-byte groups
+
+
+@pytest.mark.parametrize("ci", [16, 32, 48])
+@pytest.mark.parametrize("w", [1024, 2048])
+def test_window_copy_kernel_bit_equal(dev, ci, w):
+    """K8 at Ci 16, 32, 48: one copy per window, then windows split into
+    20 KB chunks; windows outside x give zeros; a misaligned x raises."""
+    from mm2d3d_tpu_torch.ops.kernels import exp_gather as G
+
+    r = np.random.RandomState(ci + w)
+    v = 24576
+    x = _bf16_dev(r, dev, v, ci)
+    offs = torch.from_numpy((r.randint(0, (v - w) // 8, 48) * 8).astype(np.int32))
+    offs[:2] = torch.tensor([-8, v - w + 8])
+    offs = offs.to(dev)
+    ref = G.window_copy_ref(x, offs, w)
+    assert torch.equal(G.window_copy(x, offs, w), ref)
+    assert torch.equal(G.window_copy(x, offs, w, max_chunk_bytes=20_000), ref)
+    with pytest.raises(ValueError, match="aligned"):
+        G.window_copy(x.reshape(-1)[1:1 + (v - 1) * ci].reshape(v - 1, ci), offs, w)
+
+
+@pytest.mark.parametrize("ci", [16, 32, 48])
+@pytest.mark.parametrize("w", [1024, 2048])
+def test_window_gather_kernel_bit_equal(dev, ci, w):
+    """K9 at Ci 16, 32, 48, ids outside the window included: bit-equal; a
+    window larger than a block's shared memory raises."""
+    from mm2d3d_tpu_torch.ops.kernels import exp_gather as G
+
+    r = np.random.RandomState(ci * w)
+    xw = _bf16_dev(r, dev, w, ci)
+    idx = torch.from_numpy(r.randint(-2, w + 2, (4, 24576)).astype(np.int32)).to(dev)
+    assert torch.equal(G.window_gather(xw, idx), G.window_gather_ref(xw, idx))
+    with pytest.raises(ValueError, match="shared memory"):
+        G.window_gather(_bf16_dev(r, dev, 4096, 48), idx)
+
+
+@pytest.mark.parametrize("v", [65536, 65496, 1001, 64])
+@pytest.mark.parametrize("centre", [True, False])
+def test_band_apply_kernel_within_tolerance(dev, v, centre):
+    """K10, both E builds and tiles: within 1e-4 * max|plain| and bit-stable
+    over two calls, on real-table taps with the first two tiles all
+    missing, and on the TPU probe's own recipe (duplicates, tap 13)."""
+    from mm2d3d_tpu_torch.ops.kernels import exp_bandmm as B
+
+    r = np.random.RandomState(v)
+    xm = _bf16_dev(r, dev, 16, v) if centre else None
+    x = _bf16_dev(r, dev, 3, 16, v)
+    w = _bf16_dev(r, dev, 16, 27 * 16)
+    real = B.real_table_taps(r, 3, v)
+    real[:, :256] = 27
+    probe = np.sort(r.randint(0, 27, size=(3, v)), axis=0).astype(np.int32)
+    probe[r.rand(3, v) > 0.8] = 27
+    for taps in (real, probe):
+        tap = torch.from_numpy(taps).to(dev)
+        ref = B.band_apply_ref(xm, x, tap, w)
+        for e_build in B.E_BUILDS:
+            for voxels in B.VOXELS_PER_BLOCK:
+                out = B.band_apply(xm, x, tap, w, e_build, voxels)
+                assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+                assert torch.equal(out, B.band_apply(xm, x, tap, w, e_build, voxels))
+
+
+def test_band_apply_kernel_refuses(dev):
+    from mm2d3d_tpu_torch.ops.kernels import exp_bandmm as B
+
+    r = np.random.RandomState(0)
+    x = _bf16_dev(r, dev, 3, 16, 256)
+    tap = torch.from_numpy(B.real_table_taps(r, 3, 256)).to(dev)
+    with pytest.raises(TypeError):
+        B.band_apply(None, x.float(), tap, _bf16_dev(r, dev, 16, 432).float())
+    with pytest.raises(ValueError):
+        B.band_apply(None, x, tap, _bf16_dev(r, dev, 8, 432))  # Co % 16
+    with pytest.raises(ValueError, match="shared memory"):
+        B.band_apply(None, _bf16_dev(r, dev, 3, 64, 256), tap,
+                     _bf16_dev(r, dev, 64, 27 * 64), "full", 128)

@@ -102,7 +102,8 @@ def test_net2dseg_eval_matches_flax(net2d):
     model = Net2DSeg(NC, compute_dtype=torch.float32).eval()
     model.load_state_dict(from_flax(params, stats, {}, {})[0], strict=True)
     with torch.inference_mode():
-        p, segm_last, a = model(*(torch.from_numpy(x) for x in (img, depth, idx, mask)))
+        p, segm_last, a = model(*(torch.from_numpy(x) for x in (img, depth, idx, mask)),
+                                with_features=False)
     assert segm_last is None
     tol = dict(rtol=1e-3, atol=1e-4)
     for name, ours, ref in (
@@ -113,6 +114,28 @@ def test_net2dseg_eval_matches_flax(net2d):
     ):
         assert tuple(ours.shape) == ref.shape, name
         np.testing.assert_allclose(t2n(ours), np.asarray(ref), err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("fused_head", [False, True])
+def test_net2dseg_segm_last_matches_flax(net2d, fused_head):
+    """`with_features=True` (the default, as in flax) returns segm_last, the
+    64-channel dec_conv_stage1 map cropped to (B, h, w, 64): within 1e-4 of
+    flax's largest value, fused head or not."""
+    (img, depth, idx, mask), params, stats, _ = net2d
+    model_j = Net2DSegJax(num_classes=NC, compute_dtype=jnp.float32)
+    args = tuple(jnp.asarray(a) for a in (img, depth, idx, mask))
+    _, ref, _ = jax.jit(lambda *a: model_j.apply(
+        {"params": params, "batch_stats": stats}, *a, False,
+        with_features=True))(*args)
+    model = Net2DSeg(NC, compute_dtype=torch.float32, fused_head=fused_head).eval()
+    model.load_state_dict(from_flax(params, stats, {}, {})[0], strict=True)
+    with torch.inference_mode():
+        _, segm_last, _ = model(*(torch.from_numpy(x) for x in (img, depth, idx, mask)))
+    ref = np.asarray(ref)
+    assert ref.shape == (img.shape[0], img.shape[1], img.shape[2], 64)
+    assert tuple(segm_last.shape) == ref.shape and segm_last.dtype == torch.float32
+    np.testing.assert_allclose(t2n(segm_last), ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max())
 
 
 def test_bridge_uses_every_leaf_once_and_fills_every_tensor(net2d, net3d):

@@ -94,8 +94,11 @@ def test_port_imports_without_jax():
         "import mm2d3d_tpu_torch.data.preprocess.nuscenes_lidarseg\n"
         "import mm2d3d_tpu_torch.tools.autotune, mm2d3d_tpu_torch.tools.doctor\n"
         "import mm2d3d_tpu_torch.models.torch_import\n"
+        "import mm2d3d_tpu_torch.tools.exp_dma_gather\n"
+        "import mm2d3d_tpu_torch.tools.exp_bandmm_variants\n"
         "from mm2d3d_tpu_torch.ops import kernels\n"
-        "assert sorted(kernels.all_kernels()) == ['bandmm', 'bandmm_dw', 'head2d', "
+        "assert sorted(kernels.all_kernels()) == ['bandmm', 'bandmm_dw', 'exp_bandmm', "
+        "'exp_group_gather', 'exp_window_copy', 'exp_window_gather', 'head2d', "
         "'maxpool', 'propagate', 'tapsum']\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
