@@ -3082,12 +3082,34 @@ def check_k8(res: Results, dev) -> None:
                   "K8 at a 16-byte offset")
 
 
+# the first design of K9 and K10 at the same cases, measured by this script's
+# phase 17 on an NVIDIA H100 80GB HBM3 at 700.00 W: K9 staged the whole
+# window in every block, K10 built E in shared memory one element per
+# thread; printed beside the redesigned kernels' times
+FIRST_DESIGN_MS = {
+    "exp_window_gather": {"H=3 V=65536 Ci=16 w=1024": 0.0050,
+                          "H=4 V=24576 Ci=48 w=2048": 0.0087},
+    "exp_bandmm": {"real-table E=full 64 voxels/block V=65536": 0.0893,
+                   "real-table E=compact 64 voxels/block V=65536": 0.1011},
+}
+
+
+def log_against_first_design(kernel: str, case: str, ms: float, bnd) -> None:
+    first = FIRST_DESIGN_MS[kernel].get(case)
+    was = "not recorded" if first is None else f"{first:.4f} ms"
+    log(f"  {kernel} {case}: {ms:.4f} ms (first design {was}), bound {bnd[0]:.4f} ms "
+        f"({bnd[0] / ms:.0%} of it, {bnd[1]})")
+
+
 def check_k9(res: Results, dev) -> None:
-    """K9 at the three cases, windows of 1024 and 2048 rows, bit-equal; ids
-    outside the window give zeros."""
+    """K9 at the three cases, windows of 1024 and 2048 rows, bit-equal at
+    both cluster sizes; ids outside the window (below 0, at w, at the int32
+    extremes) give zeros; rows that are not whole clusters' worth (fewer
+    than one cluster's CTAs, a short last range) at both cluster sizes."""
     import numpy as np
 
-    from mm2d3d_tpu_torch.ops.kernels.exp_gather import window_gather, window_gather_ref
+    from mm2d3d_tpu_torch.ops.kernels.exp_gather import (
+        GATHER_CLUSTERS, window_gather, window_gather_ref)
     from mm2d3d_tpu_torch.tools import exp_dma_gather as D
 
     for h, v, ci in D.CASES:
@@ -3097,30 +3119,46 @@ def check_k9(res: Results, dev) -> None:
             xw = x[:w]
             idx = D.ints(rng.randint(0, w, (h, v)), dev)
             edge = idx.clone()
-            edge[0, :2] = torch.tensor([-1, w])
-            D.check_equal(window_gather(xw, edge), window_gather_ref(xw, edge),
-                          f"K9 Ci={ci} w={w} with misses")
+            edge[0, :5] = torch.tensor([-1, w, w + 7, 2**31 - 1, -2**31])
+            for cluster in GATHER_CLUSTERS:
+                D.check_equal(window_gather(xw, edge, cluster), window_gather_ref(xw, edge),
+                              f"K9 Ci={ci} w={w} cluster {cluster} with misses")
             out = window_gather(xw, idx)
             flat = idx.reshape(-1)
             ms = cuda_ms(lambda: window_gather(xw, idx))
             plain = cuda_ms(lambda: window_gather_ref(xw, idx), reps=5)
             library = cuda_ms(lambda: torch.index_select(xw, 0, flat))
-            res.add("exp_window_gather", f"H={h} V={v} Ci={ci} w={w}", 0.0, 0.0, ms,
-                    plain, bound(nbytes(out, idx) + gathered_bytes(xw, idx)), library)
+            case = f"H={h} V={v} Ci={ci} w={w}"
+            bnd = bound(nbytes(out, idx) + gathered_bytes(xw, idx))
+            res.add("exp_window_gather", case, 0.0, 0.0, ms, plain, bnd, library)
+            log_against_first_design("exp_window_gather", case, ms, bnd)
+    rng = np.random.RandomState(21)
+    xw = D.bf16(rng, 1000, 48, dev=dev)
+    for rows in (1, 7, 131 * 256 + 3):
+        idx = D.ints(rng.randint(-3, 1003, (rows,)), dev)
+        for cluster in GATHER_CLUSTERS:
+            D.check_equal(window_gather(xw, idx, cluster), window_gather_ref(xw, idx),
+                          f"K9 {rows} rows cluster {cluster}")
+    log("  K9 edges: ids outside the window, rows not whole clusters' worth, both "
+        "cluster sizes: bit-equal")
 
 
 def check_k10(res: Results, dev) -> None:
     """K10 at the probe's size (V = 65,536, H = 3, Ci = Co = 16, K = 27,
     real-table taps), both E builds and both tiles, within 1e-4 *
     max|plain| and bit-stable over two calls; then V not a multiple of the
-    tile (65,496, and 1,001: rows not 16-byte aligned), tiles whose rows
-    all miss (compact E with the centre's band only, or none without xm)
-    and the TPU probe's own tap recipe (duplicates, tap 13)."""
+    tile (65,496), over more tiles than the persistent grid has blocks, not
+    a multiple of 8 (1,001 and 4,093: rows not 16-byte aligned), under one
+    tile (40), the flagship's L0 table, tiles whose rows all miss (compact E
+    with the centre's band only, or none without xm), the TPU probe's own
+    tap recipe (duplicates, tap 13) with and without the centre, and shapes
+    off the probe's (H = 5, Ci = 32, Co = 64)."""
     import numpy as np
 
     from mm2d3d_tpu_torch.ops.kernels.exp_bandmm import (
-        E_BUILDS, VOXELS_PER_BLOCK, band_apply, band_apply_ref)
+        E_BUILDS, VOXELS_PER_BLOCK, band_apply, band_apply_ref, band_plan)
     from mm2d3d_tpu_torch.tools import exp_bandmm_variants as BV
+    from mm2d3d_tpu_torch.tools.kernel_cases import band_inputs
 
     def check(xm, x, tap, w, what, time_it=False):
         ref = band_apply_ref(xm, x, tap, w)
@@ -3140,14 +3178,19 @@ def check_k10(res: Results, dev) -> None:
                 ms = cuda_ms(lambda: band_apply(xm, x, tap, w, e_build, voxels))
                 hits = int(((tap >= 0) & (tap < BV.K)).sum())
                 n_bytes = nbytes(xm, tap, w, out) + hits * x.shape[1] * x.element_size()
-                res.add("exp_bandmm", case, err, tol, ms, plain,
-                        bound(n_bytes, 2 * w.shape[0] * x.shape[1] * (hits + x.shape[2]),
-                              torch.bfloat16))
+                bnd = bound(n_bytes, 2 * w.shape[0] * x.shape[1] * (hits + x.shape[2]),
+                            torch.bfloat16)
+                res.add("exp_bandmm", case, err, tol, ms, plain, bnd)
+                log_against_first_design("exp_bandmm", case, ms, bnd)
 
-    xm, x, tap, w = BV.inputs(dev, seed=17)
+    xm, x, tap, w = band_inputs(dev, seed=17)
     check(xm, x, tap, w, "real-table", time_it=True)
-    for v in (65496, 1001):
-        check(*BV.inputs(dev, seed=v, v=v), "real-table")
+    # V over more tiles than the persistent grid has blocks, under one tile,
+    # not a multiple of 8 (no tensor maps: elements copied)
+    many = 3 * band_plan(BV.V, BV.H, BV.CI, BV.CO, BV.K, 64)["blocks"] * 64 + 40
+    for v in (65496, many, 1001, 4093, 40):
+        check(*band_inputs(dev, seed=v, v=v), "real-table")
+    check(*band_inputs(dev, taps="flagship L0"), "flagship L0")
     tap_miss = tap.clone()
     tap_miss[:, 128:1024] = BV.K  # whole tiles of 64 and 128 voxels miss
     check(xm, x, tap_miss, w, "tiles all missing")
@@ -3156,8 +3199,18 @@ def check_k10(res: Results, dev) -> None:
     taps = np.sort(rng.randint(0, 27, size=(3, x.shape[2])), axis=0).astype(np.int32)
     taps[rng.rand(3, x.shape[2]) > 0.8] = 27
     check(xm, x, torch.from_numpy(taps).to(dev), w, "TPU probe taps")
-    log("  K10 edges: V 65,496 and 1,001, tiles all missing (with and without "
-        "the centre), the TPU probe's tap recipe: within tolerance, bit-stable")
+    check(None, x, torch.from_numpy(taps).to(dev), w, "TPU probe taps, no centre")
+    def bf16(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+    for h, ci, co, v in ((5, 16, 16, 3000), (2, 32, 16, 1500), (2, 16, 64, 1003)):
+        t = np.sort(rng.randint(0, 28, size=(h, v)), axis=0).astype(np.int32)
+        check(bf16(ci, v), bf16(h, ci, v), torch.from_numpy(t).to(dev), bf16(co, 27 * ci),
+              f"H={h} Ci={ci} Co={co}")
+    log(f"  K10 edges: V 65,496, {many:,} (more tiles than blocks), 1,001 and 4,093 "
+        "(not multiples of 8), 40 (under one tile), the flagship's L0 table, tiles "
+        "all missing and the TPU probe's tap recipe (with and without the centre), "
+        "H = 5, Ci = 32, Co = 64: within tolerance, bit-stable")
 
 
 def run_phase17(res: Results, dev) -> dict:

@@ -2,7 +2,8 @@
 // one-dimensional form of the Tensor Memory Accelerator) completed on an
 // mbarrier transaction count: the Hopper counterpart of one
 // `pltpu.make_async_copy` descriptor and its DMA semaphore.  Shared by the
-// window kernels K8 (exp_window_copy.cu) and K9 (exp_window_gather.cu).
+// window kernels K8 (exp_window_copy.cu) and K9 (exp_window_gather.cu) and
+// by K10 (exp_bandmm.cu: W and its ring's barriers).
 //
 // A copy moves a multiple of 16 bytes between 16-byte aligned addresses;
 // one barrier phase counts at most 2^20 - 1 bytes, more than a block's
@@ -31,6 +32,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    smem_addr(bar)),
                "r"(bytes)
+               : "memory");
+}
+
+// arrive once, with no transactions (release: this thread's earlier
+// shared-memory writes and reads are ordered before the phase completes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
                : "memory");
 }
 

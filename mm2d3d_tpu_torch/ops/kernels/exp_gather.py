@@ -10,7 +10,8 @@ kernel could beat the gather engine for slot-conv rows:
   bulk asynchronous copy each.  `csrc/exp_window_copy.cu`;
   `window_copy_ref`.
 - K9 `window_gather` (`make_onehot.onehot_kernel`): rows by local id out
-  of one window staged in shared memory.  `csrc/exp_window_gather.cu`;
+  of one window multicast to a thread-block cluster's shared memory
+  (`window_gather_plan`).  `csrc/exp_window_gather.cu`;
   `window_gather_ref`.
 
 No system path calls them: `tools/exp_dma_gather.py` (the port's) times
@@ -22,6 +23,8 @@ the kernels and in the plain versions alike.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
+
 import torch
 
 from . import (
@@ -30,7 +33,9 @@ from . import (
 from .tapsum import SMS
 
 MAX_BULK_BYTES = 227 * 1024 - 1024  # csrc/bulk.cuh: kMaxBulkBytes
-GATHER_BLOCKS_PER_SM = 4  # K9's grid: at most this many window copies per SM
+GATHER_CLUSTERS = (2, 4)  # K9: the CTAs of a cluster that share one window
+GATHER_PAIR_BYTES = 96 * 1024  # K9: clusters of 2 up to this window, of 4 above
+GATHER_MIN_ROWS = 256  # K9: no CTA with fewer rows, where the rows allow
 
 
 def _bind_group(lib):
@@ -49,8 +54,8 @@ def _bind_window_copy(lib):
 
 
 def _bind_window_gather(lib):
-    lib.window_gather.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    lib.window_gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p,
     ]
     lib.window_gather.restype = ctypes.c_int
 
@@ -204,35 +209,54 @@ def window_gather_ref(xw: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _rows_or_zeros(xw, idx.reshape(-1)).reshape(*idx.shape, xw.shape[1])
 
 
-def window_gather_blocks(rows: int, window_bytes: int) -> int:
-    """K9's grid: each block stages the whole window, so at most as many
-    blocks as shared memory holds at once on the card (one wave, up to
-    GATHER_BLOCKS_PER_SM per SM), and no block with fewer than 256 rows."""
-    per_sm = max(1, min(GATHER_BLOCKS_PER_SM, MAX_BULK_BYTES // max(window_bytes, 1)))
-    return max(1, min(-(-rows // 256), SMS * per_sm))
+def window_gather_plan(rows: int, w: int, row_bytes: int,
+                       cluster: Optional[int] = None) -> dict:
+    """K9's launch.  A `cluster` of CTAs shares the window by multicast:
+    CTA r loads rows [r * part_rows, (r + 1) * part_rows) and lands them in
+    every CTA of the cluster, so that each holds the whole window (`smem`
+    bytes).  `ctas` (a whole number of clusters, at most one per SM, none
+    with fewer than GATHER_MIN_ROWS rows where there are enough rows) each
+    take `rows_per_cta` contiguous rows; the kernel cuts `ctas` to the
+    clusters the card holds at once.  By default 2 CTAs a cluster up to
+    GATHER_PAIR_BYTES of window, 4 above.  Raises where the window does not
+    fit a CTA's shared memory."""
+    window = w * row_bytes
+    if w <= 0:
+        raise ValueError("window_gather: an empty window")
+    if window > MAX_BULK_BYTES:
+        raise ValueError(f"window_gather: a window of {window} B does not fit a CTA's "
+                         f"{MAX_BULK_BYTES} B of shared memory")
+    if cluster is None:
+        cluster = 2 if window <= GATHER_PAIR_BYTES else 4
+    if cluster not in GATHER_CLUSTERS:
+        raise ValueError(f"window_gather: cluster in {GATHER_CLUSTERS}, got {cluster}")
+    ctas = -(-max(1, min(SMS, -(-rows // GATHER_MIN_ROWS))) // cluster) * cluster
+    return {"cluster": cluster, "ctas": ctas, "part_rows": -(-w // cluster),
+            "rows_per_cta": max(1, -(-rows // ctas)), "smem": window}
 
 
-def window_gather(xw: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def window_gather(xw: torch.Tensor, idx: torch.Tensor,
+                  cluster: Optional[int] = None) -> torch.Tensor:
     """xw (w, C), idx (...) int32 local row ids -> out (..., C), out[q] =
-    xw[idx[q]]; zeros for an id outside [0, w).  On a CUDA tensor the
-    window must fit a block's shared memory (226 KB), a row must be whole
-    16-byte chunks and xw 16-byte aligned."""
+    xw[idx[q]]; zeros for an id outside [0, w).  On a CUDA tensor a
+    cluster of 2 or 4 CTAs (`cluster`, by default `window_gather_plan`'s)
+    shares the window by multicast: it must fit a CTA's shared memory (226
+    KB), a row must be whole 16-byte chunks and xw 16-byte aligned."""
     _check_2d(xw, idx, "window_gather")
     if not on_cuda(xw, idx):
         return window_gather_ref(xw, idx)
 
     require_contiguous(xw=xw, idx=idx)
     row_bytes = _row_bytes_ok(xw, 1, "window_gather")
-    window_bytes = xw.shape[0] * row_bytes
-    if window_bytes > MAX_BULK_BYTES or xw.shape[0] == 0:
-        raise ValueError(f"window_gather: a window of {window_bytes} B does not fit "
-                         f"a block's {MAX_BULK_BYTES} B of shared memory")
     rows = idx.numel()
-    blocks = window_gather_blocks(rows, window_bytes)
+    if rows >= 2**31:
+        raise ValueError(f"window_gather: {rows} ids, more than an int32 counts")
+    plan = window_gather_plan(rows, xw.shape[0], row_bytes, cluster)
     out = torch.empty((*idx.shape, xw.shape[1]), dtype=xw.dtype, device=xw.device)
     lib = WINDOW_GATHER_KERNEL.lib()
     WINDOW_GATHER_KERNEL.launches += 1
     WINDOW_GATHER_KERNEL.check(lib.window_gather(
-        ptr(xw), ptr(idx), ptr(out), xw.shape[0], row_bytes, rows, blocks, stream(),
+        ptr(xw), ptr(idx), ptr(out), xw.shape[0], row_bytes, rows, plan["cluster"],
+        plan["ctas"], plan["part_rows"], stream(),
     ))
     return out

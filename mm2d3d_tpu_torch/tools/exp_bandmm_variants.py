@@ -11,10 +11,10 @@ of writing its E build at tile 512 (`main`) and a tile sweep with a
 band-pairing variant (`main2`, argument `2`); here the Hopper counterparts
 of both questions, every combination of:
 
-  - the E build: `full` stages all 27 bands (K1's route today) or
-    `compact` only the bands some row of the tile hits (ROADMAP Queue 2,
-    skipping empty bands);
-  - voxels per block: 64 or 128.
+  - the E build: `full` multiplies all 27 bands (K1's route today) or
+    `compact` only the bands some voxel of a warp's 16 hits (ROADMAP
+    Queue 2, skipping empty bands);
+  - voxels per tile of the persistent grid's ring: 64 or 128.
 
 over two tap tables: `real-table` (seeded, the way a slot table holds its
 taps: distinct, ascending, never 13, 80% hits; the TPU probe's own recipe
@@ -30,11 +30,15 @@ card's name and power limit, and a JSON last line.  Needs a CUDA device:
 raises without one.
 
 `--stages` also asks where the time goes: each of its variants is
-`csrc/exp_bandmm.cu` with steps of the block cut out (no product; no E
-build; no zeroing of E; all three: staging and stores only), built by nvcc
-into a temporary directory (the package's source is untouched) and timed
-on the real-table taps beside the whole kernel.  A cut variant's output is
-wrong by design and is not checked.
+`csrc/exp_bandmm.cu` with steps of the kernel cut out (no product; no
+fragment build; no stores; no bands and no stores: the ring, the staging
+of the sources and the out tile alone), or with the probe shape's own
+instantiation (K = 27, Ci = Co = 16 fixed, the band loop unrolled) turned
+off, so that the general one (any shape, a loop over the set bands) runs
+the same case; each is built by nvcc into a temporary directory (the
+package's source is untouched) and timed on the real-table taps beside the
+whole kernel.  A cut variant's output is wrong by design and is not
+checked; the general variant computes the same function.
 """
 
 from __future__ import annotations
@@ -48,40 +52,18 @@ import subprocess
 import sys
 import tempfile
 
-import numpy as np
 import torch
 
 from ..ops.kernels import CSRC_DIR, NVCC_FLAGS, _nvcc, ptr, stream
 from ..ops.kernels.exp_bandmm import (
-    E_BUILDS, VOXELS_PER_BLOCK, band_apply, band_apply_ref, real_table_taps,
+    E_BUILDS, VOXELS_PER_BLOCK, band_apply, band_apply_ref, band_plan,
 )
 from .exp_dma_gather import SMI, require_cuda
-from .kernel_cases import cuda_ms
+from .kernel_cases import BAND_CASE, band_inputs, cuda_ms
 
-V, H, CI, CO, K = 65536, 3, 16, 16, 27  # the TPU probe's sizes
+V, H, CI, CO, K = BAND_CASE  # the TPU probe's sizes
 REL_TOL = 1e-4  # max|kernel - plain| <= REL_TOL * max|plain| (fp32 sums in another order)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-
-
-def inputs(dev, seed: int = 0, v: int = V, taps: str = "real-table") -> tuple:
-    """(xm (Ci, V), x (H, Ci, V), tap (H, V), w (Co, K * Ci)) on `dev`, bf16
-    but the int32 taps, from `seed`; taps "real-table" (`real_table_taps`)
-    or "flagship L0" (the level-0 tier-1 table of a batch-8 flagship
-    topology, V its capacity)."""
-    rng = np.random.RandomState(seed)
-    if taps == "flagship L0":
-        from .kernel_cases import _hierarchy
-
-        tap = _hierarchy(dev).levels[0].slot_tap.contiguous()
-        v = tap.shape[1]
-    else:
-        tap = torch.from_numpy(real_table_taps(rng, H, v, K)).to(dev)
-
-    def bf16(*shape):
-        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
-            dev, torch.bfloat16)
-
-    return bf16(CI, v), bf16(H, CI, v), tap, bf16(CO, K * CI)
 
 
 def bound_ms(xm, x, tap, w, out) -> float:
@@ -98,7 +80,7 @@ def run(dev) -> list:
     """Every (taps, E build, voxels per block) variant; one dict each."""
     out = []
     for taps in ("real-table", "flagship L0"):
-        xm, x, tap, w = inputs(dev, taps=taps)
+        xm, x, tap, w = band_inputs(dev, taps=taps)
         ref = band_apply_ref(xm, x, tap, w)
         plain = cuda_ms(lambda: band_apply_ref(xm, x, tap, w), reps=5)
         scale = float(ref.abs().max())
@@ -122,18 +104,32 @@ def run(dev) -> list:
     return out
 
 
-# the block's steps that `--stages` cuts out: (text in csrc/exp_bandmm.cu,
-# its replacement)
+# the kernel's steps that `--stages` cuts out: (text in csrc/exp_bandmm.cu,
+# its replacement).  Without the build (the row selection and its
+# ldmatrix), band k's operand is a register expression; without the
+# product, the operands are folded into the sums by integer ops (`fold`),
+# so the build is not optimised away; without the bands, no band is built
+# or multiplied (W's fragments are not read either); without the stores,
+# no tile is written (a test that never holds guards them); without the
+# probe instantiation, the probe's shape takes the general one.
 CUTS = {
-    "product": ("for (int b = 0; b < nb; ++b) {", "for (int b = 0; b < 0; ++b) {"),
-    "E build": ("for (int e = tid; e < (H + 1) * Ci * BV; e += kThreads) {",
-                "for (int e = tid; e < 0; e += kThreads) {"),
-    "zeroing": ("for (int i = tid; i < nb * Ci * kEStride / 8; i += kThreads)",
-                "for (int i = tid; i < 0; i += kThreads)"),
+    "fragment build": (
+        "if (slow) sum_band<kSlots>(a, tv, slot, cen, zero, k, is_c); "
+        "else pick_band<kSlots>(a, tv, slot, cen, zero, k, is_c);",
+        "for (int i = 0; i < 4; ++i) a[i] = slot[0] + k;"),
+    "product": ("  mma_bf16(acc[0], a, b[0], b[1]);\n  mma_bf16(acc[1], a, b[2], b[3]);",
+                "  fold(acc, a, b);"),
+    "bands": ("const unsigned bands = kCompact ? warp_hits : all_bands;",
+              "const unsigned bands = 0u;"),
+    "stores": ("if (q < n) *reinterpret_cast<float4*>",
+               "if (q < n && o[co * kOutRow + q] == 3.0e38f) *reinterpret_cast<float4*>"),
+    "probe instantiation": ("if (H <= 3 && K == 27 && Ci == 16 && Co == 16) {",
+                            "if (false) {"),
 }
-STAGE_VARIANTS = {"no product": ("product",), "no E build": ("E build",),
-                  "no zeroing": ("zeroing",),
-                  "staging and stores only": ("product", "E build", "zeroing")}
+STAGE_VARIANTS = {"no product": ("product",), "no fragment build": ("fragment build",),
+                  "no stores": ("stores",),
+                  "ring and staging only": ("bands", "stores"),
+                  "general path": ("probe instantiation",)}
 
 
 def build_cut(name: str, cuts, tmp: str) -> ctypes.CDLL:
@@ -156,7 +152,7 @@ def build_cut(name: str, cuts, tmp: str) -> ctypes.CDLL:
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-3000:]}")
     lib = ctypes.CDLL(out)
-    lib.exp_bandmm.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.exp_bandmm.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.exp_bandmm.restype = ctypes.c_int
     return lib
 
@@ -164,9 +160,10 @@ def build_cut(name: str, cuts, tmp: str) -> ctypes.CDLL:
 def run_stages(dev) -> list:
     """The whole kernel and each cut variant on the real-table taps, full and
     compact E, 64 voxels a block, timed in turns (the list, then reversed)."""
-    xm, x, tap, w = inputs(dev)
+    xm, x, tap, w = band_inputs(dev)
     h, ci, v = x.shape
     co, k = w.shape[0], w.shape[1] // ci
+    blocks = band_plan(v, h, ci, co, k, 64)["blocks"]
     out = torch.empty((co, v), dtype=torch.float32, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(STAGE_VARIANTS)) as pool:
@@ -180,10 +177,19 @@ def run_stages(dev) -> list:
             for name, lib in libs.items():
                 def call(lib=lib, eb=e_build):
                     rc = lib.exp_bandmm(ptr(xm), ptr(x), ptr(tap), ptr(w), ptr(out), v, h,
-                                        ci, co, k, int(eb == "compact"), 64, stream())
+                                        ci, co, k, int(eb == "compact"), 64, blocks,
+                                        stream())
                     if rc:
                         raise RuntimeError(f"exp_bandmm {name}: CUDA error {rc}")
                 calls[f"E={e_build} {name}"] = call
+        # the general instantiation computes the same function: hold it to
+        # the plain version before it is timed
+        ref = band_apply_ref(xm, x, tap, w)
+        for e_build in E_BUILDS:
+            calls[f"E={e_build} general path"]()
+            err = float((out - ref).abs().max())
+            if not err <= REL_TOL * float(ref.abs().max()):
+                raise AssertionError(f"K10 general path E={e_build}: max|d| {err}")
         times = {name: [] for name in calls}
         for order in (list(calls), list(calls)[::-1]):
             for name in order:

@@ -20,8 +20,10 @@ same mechanisms on Hopper, at the TPU probe's own sizes (its three
      (`ops/kernels/exp_gather.py`).  Prints G groups/s and G rows/s.
   C. K8 `window_copy`: contiguous windows of w = 1024 and 2048 rows, one
      bulk asynchronous copy each.  Prints GB/s and us per window.
-  D. K9 `window_gather`: rows by local id out of a window staged in shared
-     memory (the TPU's one-hot product).  Prints G rows/s.
+  D. K9 `window_gather`: rows by local id out of a window multicast to a
+     thread-block cluster's shared memory (the TPU's one-hot product), at
+     the plan's cluster size (2 CTAs up to 96 KB of window, 4 above), then
+     the other.  Prints G rows/s.
 
 Every kernel's result is held bit-equal to its plain version before it is
 timed (CUDA events around 20 calls queued behind a sleep kernel, median of
@@ -41,16 +43,16 @@ import numpy as np
 import torch
 
 from ..ops.kernels.exp_gather import (
-    group_gather, group_gather_ref, group_order, window_copy, window_copy_ref,
-    window_gather, window_gather_ref,
+    GATHER_CLUSTERS, group_gather, group_gather_ref, group_order, window_copy,
+    window_copy_ref, window_gather, window_gather_plan, window_gather_ref,
 )
-from .kernel_cases import cuda_ms
+from .kernel_cases import GATHER_CASES, GATHER_WINDOWS, cuda_ms
 
-CASES = ((3, 65536, 16), (4, 40960, 32), (4, 24576, 48))  # (H, V, Ci)
+CASES = GATHER_CASES  # (H, V, Ci)
 T = 512  # the TPU probe's output tile: ids per slot and tile of B
 LANES = 128  # B's row width (the TPU's lane width)
 GROUPS = (8, 1)  # B's rows per group: the TPU's grain, then per row
-WINDOWS = (1024, 2048)  # C's and D's window rows
+WINDOWS = GATHER_WINDOWS  # C's and D's window rows
 SMI = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
 
 
@@ -162,18 +164,21 @@ def run_case(h: int, v: int, ci: int, dev, seed: int = 0) -> list:
     for w in WINDOWS:
         lidx = ints(rng.randint(0, w, (h, v)), dev)
         xw = x[:w]
-        res = window_gather(xw, lidx)
-        check_equal(res, window_gather_ref(xw, lidx), f"K9 w={w} {tag}")
         lflat = lidx.reshape(-1)
-        ms = cuda_ms(lambda: window_gather(xw, lidx))
         lib = cuda_ms(lambda: torch.index_select(xw, 0, lflat))
-        print(f"D window gather w={w:5d} {tag:28s} {ms:9.4f} ms "
-              f"(index_select {lib:.4f} ms)\n"
-              f"    -> {rows / ms / 1e6:.2f} G rows/s ({ms / a:.2f}x vs A's time)",
-              flush=True)
-        out.append({"case": tag, "kernel": "exp_window_gather", "variant": f"w={w}",
-                    "ms": ms, "library_ms": lib, "rows": rows,
-                    "g_rows_per_s": rows / ms / 1e6, "vs_library": lib / ms})
+        default = window_gather_plan(rows, w, ci * xw.element_size())["cluster"]
+        for cluster in sorted(GATHER_CLUSTERS, key=lambda c: c != default):  # the plan's first
+            res = window_gather(xw, lidx, cluster)
+            check_equal(res, window_gather_ref(xw, lidx), f"K9 w={w} cluster {cluster} {tag}")
+            ms = cuda_ms(lambda: window_gather(xw, lidx, cluster))
+            variant = f"w={w}" + ("" if cluster == default else f" cluster {cluster}")
+            print(f"D window gather {variant:16s} {tag:28s} {ms:9.4f} ms "
+                  f"(cluster {cluster}; index_select {lib:.4f} ms)\n"
+                  f"    -> {rows / ms / 1e6:.2f} G rows/s ({ms / a:.2f}x vs A's time)",
+                  flush=True)
+            out.append({"case": tag, "kernel": "exp_window_gather", "variant": variant,
+                        "cluster": cluster, "ms": ms, "library_ms": lib, "rows": rows,
+                        "g_rows_per_s": rows / ms / 1e6, "vs_library": lib / ms})
     return out
 
 

@@ -1,10 +1,11 @@
-"""What `chip_smoke.py` and the K1/K2 tools (`tools/slotconv_ab.py`,
-`tools/slotconv_tiles.py`) share: the flagship batch, the device timer, the
-kernel launches a hierarchy predicts (also for `tools/ddp_check.py`), and
-K1's and K2's call forms at the flagship's shapes, at the KITTI-family
-configs' level-0 tiers (the dense slot profile, batch 16 x 10,240 points),
-over the strided convs' child slots (K = 8, H = 3 and 5) and at the
-tensor-core kernels' edges.
+"""What `chip_smoke.py` and the kernel tools (`tools/slotconv_ab.py`,
+`tools/slotconv_tiles.py`, the probe tools) share: the flagship batch, the
+device timer, the kernel launches a hierarchy predicts (also for
+`tools/ddp_check.py`), K1's and K2's call forms at the flagship's shapes,
+at the KITTI-family configs' level-0 tiers (the dense slot profile, batch
+16 x 10,240 points), over the strided convs' child slots (K = 8, H = 3 and
+5) and at the tensor-core kernels' edges, and K9's and K10's at the TPU
+probes' sizes.
 
 The imports of the package sit inside the functions and name it in full,
 so that `tools/slotconv_ab.py` can load this file beside another checkout's
@@ -287,3 +288,60 @@ def edge_forms(dev):
                            torch.from_numpy(t.astype(np.int32)).to(dev),
                            f(0.1 * r.randn(k, ci, co)), f(r.randn(v, co))), k))
     return out
+
+
+# the TPU probes' sizes: the gather probe's (H, V, Ci) cases and windows
+# (`tools/exp_dma_gather.py`), the E-build probe's V, H, Ci, Co, K
+# (`tools/exp_bandmm_variants.py`)
+GATHER_CASES = ((3, 65536, 16), (4, 40960, 32), (4, 24576, 48))
+GATHER_WINDOWS = (1024, 2048)
+BAND_CASE = (65536, 3, 16, 16, 27)
+
+
+def band_inputs(dev, seed: int = 0, v: int = BAND_CASE[0], taps: str = "real-table") -> tuple:
+    """K10's inputs at the E-build probe's sizes: (xm (Ci, V), x (H, Ci, V),
+    tap (H, V), w (Co, K * Ci)) on `dev`, bf16 but the int32 taps, from
+    `seed`; taps "real-table" (`ops/kernels/exp_bandmm.py::real_table_taps`)
+    or "flagship L0" (the level-0 tier-1 table of a batch-8 flagship
+    topology, V its capacity)."""
+    from mm2d3d_tpu_torch.ops.kernels.exp_bandmm import real_table_taps
+
+    _, h, ci, co, k = BAND_CASE
+    rng = np.random.RandomState(seed)
+    if taps == "flagship L0":
+        tap = _hierarchy(dev).levels[0].slot_tap.contiguous()
+        v = tap.shape[1]
+    else:
+        tap = torch.from_numpy(real_table_taps(rng, h, v, k)).to(dev)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, torch.bfloat16)
+
+    return bf16(ci, v), bf16(h, ci, v), tap, bf16(co, k * ci)
+
+
+def probe_calls(dev):
+    """(name, call) for K9 (`window_gather`) and K10 (`band_apply`) at the
+    TPU probes' cases, each through its wrapper's default plan: K9 at the
+    gather probe's three (H, V, Ci) cases and both windows, ids drawn in the
+    window (seed 0); K10 with both E builds and both tiles over the
+    real-table and flagship L0 taps (`band_inputs`)."""
+    from mm2d3d_tpu_torch.ops.kernels.exp_bandmm import E_BUILDS, VOXELS_PER_BLOCK, band_apply
+    from mm2d3d_tpu_torch.ops.kernels.exp_gather import window_gather
+
+    calls = []
+    rng = np.random.RandomState(0)
+    for h, v, ci in GATHER_CASES:
+        x = torch.from_numpy(rng.randn(v, ci).astype(np.float32)).to(dev, torch.bfloat16)
+        for w in GATHER_WINDOWS:
+            idx = torch.from_numpy(rng.randint(0, w, (h, v)).astype(np.int32)).to(dev)
+            calls.append((f"K9 H={h} V={v} Ci={ci} w={w}",
+                           lambda xw=x[:w], idx=idx: window_gather(xw, idx)))
+    for taps in ("real-table", "flagship L0"):
+        args = band_inputs(dev, taps=taps)
+        for e_build in E_BUILDS:
+            for voxels in VOXELS_PER_BLOCK:
+                calls.append((f"K10 {taps} E={e_build} {voxels} voxels",
+                              lambda e=e_build, n=voxels, a=args: band_apply(*a, e, n)))
+    return calls

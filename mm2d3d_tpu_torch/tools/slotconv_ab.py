@@ -1,21 +1,25 @@
 """K1 (`slot_conv_apply`) and K2 (`slot_conv_dw`) at the flagship's call
 shapes, at the KITTI configs' level-0 tiers and at the tensor-core kernels'
-edges: the cases of `chip_smoke.py` phase 3, timed on one tree, or on two
-trees in turns on one card.
+edges: the cases of `chip_smoke.py` phase 3; or, with `--probes`, K9
+(`window_gather`) and K10 (`band_apply`) at the TPU probes' cases; timed on
+one tree, or on two trees in turns on one card.
 
-    python mm2d3d_tpu_torch/tools/slotconv_ab.py              # this tree
-    python mm2d3d_tpu_torch/tools/slotconv_ab.py --ab OTHER   # OTHER, this, this, OTHER
+    python mm2d3d_tpu_torch/tools/slotconv_ab.py [--probes]              # this tree
+    python mm2d3d_tpu_torch/tools/slotconv_ab.py [--probes] --ab OTHER   # OTHER, this, this, OTHER
 
 OTHER is the root of another checkout of the repository (an older commit
 unpacked with `git archive`).  Each tree runs in its own process, which
 imports that tree's `mm2d3d_tpu_torch`, builds its kernels and times every
-case in bf16 (CUDA events around 20 calls queued behind a sleep kernel,
-median of 3 samples; the same inputs from the same seeds in every tree).
-`--ab` prints each case's four readings and whether both of this tree's are
-under both of OTHER's.  The forms (`tools/kernel_cases.py`, this tree's
-in every run) use only the wrappers' interface, which is the same in both
-trees; a tree whose `build_topology` has no `slot_profile` (older than the
-KITTI configs) times no KITTI case.  Needs a CUDA device.
+case (CUDA events around 20 calls queued behind a sleep kernel, median of
+3 samples; the same inputs from the same seeds in every tree).  `--ab`
+prints each case's four readings and whether both of this tree's are under
+both of OTHER's.  The forms (`tools/kernel_cases.py`, this tree's in every
+run) use only the wrappers' interface, which is the same in both trees:
+K1/K2 in bf16, where a tree whose `build_topology` has no `slot_profile`
+(older than the KITTI configs) times no KITTI case; K9 and K10 through
+each wrapper's default plan, K9 at the gather probe's three (H, V, Ci)
+cases and both windows, K10 with both E builds and both tiles over the
+real-table and flagship L0 taps.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,17 +46,22 @@ def _kernel_cases():
     return mod
 
 
-def time_tree() -> dict:
-    """bf16 ms of every case on the tree whose package is imported."""
+def time_tree(probes: bool = False) -> dict:
+    """ms of every case on the tree whose package is imported: K1/K2 in
+    bf16, or K9/K10 with `probes`."""
     import torch
+
+    kc = _kernel_cases()
+    cuda_ms = kc.cuda_ms
+    dev = torch.device("cuda", 0)
+    if probes:
+        return {"device": torch.cuda.get_device_name(0),
+                "cases": {name: cuda_ms(call) for name, call in kc.probe_calls(dev)}}
 
     from mm2d3d_tpu_torch.ops.kernels.bandmm import slot_conv_apply
     from mm2d3d_tpu_torch.ops.kernels.bandmm_dw import slot_conv_dw
     from mm2d3d_tpu_torch.train.batch import build_topology
 
-    kc = _kernel_cases()
-    cuda_ms = kc.cuda_ms
-    dev = torch.device("cuda", 0)
     bf = torch.bfloat16
 
     def cast(*ts):
@@ -81,6 +90,8 @@ def main(argv=None) -> int:
                     help="root of the checkout whose package to time (a child run)")
     ap.add_argument("--ab", default=None, metavar="OTHER",
                     help="time OTHER and this tree in turns: OTHER, this, this, OTHER")
+    ap.add_argument("--probes", action="store_true",
+                    help="time K9 and K10 at the TPU probes' cases instead of K1 and K2")
     args = ap.parse_args(argv)
     if args.tree is not None:
         import torch
@@ -88,14 +99,15 @@ def main(argv=None) -> int:
         if not torch.cuda.is_available():
             print("slotconv_ab: no CUDA device", file=sys.stderr)
             return 1
-        print(json.dumps(time_tree()))
+        print(json.dumps(time_tree(args.probes)))
         return 0
     trees = [HERE] if args.ab is None else [os.path.abspath(args.ab), HERE, HERE,
                                             os.path.abspath(args.ab)]
     runs = []
     for tree in trees:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--tree", tree],
+            [sys.executable, os.path.abspath(__file__), "--tree", tree,
+             *(["--probes"] if args.probes else [])],
             capture_output=True, text=True, cwd=tree,
             env={**os.environ, "PYTHONPATH": tree})
         if proc.returncode != 0:
@@ -110,8 +122,8 @@ def main(argv=None) -> int:
         for n in names:
             print(f"{n:60s} {runs[0]['cases'][n]:.4f} ms")
         return 0
-    print(f"{'case (bf16, ms)':60s} {'other':>8s} {'this':>8s} {'this':>8s} "
-          f"{'other':>8s}  ratio")
+    head = "case (ms)" if args.probes else "case (bf16, ms)"
+    print(f"{head:60s} {'other':>8s} {'this':>8s} {'this':>8s} {'other':>8s}  ratio")
     for n in names:
         o1, t1, t2, o2 = (r["cases"].get(n, float("nan")) for r in runs)
         faster = max(t1, t2) < min(o1, o2)

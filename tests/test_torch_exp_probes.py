@@ -27,7 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 from mm2d3d_tpu_torch.ops import kernels
 from mm2d3d_tpu_torch.ops.kernels import exp_bandmm as B
 from mm2d3d_tpu_torch.ops.kernels import exp_gather as G
-from mm2d3d_tpu_torch.tools import exp_bandmm_variants, exp_dma_gather
+from mm2d3d_tpu_torch.tools import exp_bandmm_variants, exp_dma_gather, kernel_cases, slotconv_ab
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = 8  # the TPU probe's output tile (512 there)
@@ -388,6 +388,55 @@ def test_window_gather_outside_ids_give_zeros():
     assert torch.equal(out[0, :2], xw[[0, 5]]) and not out[0, 2:].any()
 
 
+@pytest.mark.parametrize("rows,w,ci", [
+    (3 * 65536, 1024, 16), (3 * 65536, 2048, 16), (4 * 40960, 1024, 32),
+    (4 * 40960, 2048, 32), (4 * 24576, 1024, 48), (4 * 24576, 2048, 48),
+    (131 * 256 + 3, 1000, 48), (7, 1000, 48), (1, 3, 8),
+])
+def test_window_gather_plan(rows, w, ci):
+    """K9's launch: clusters of 2 up to 96 KB of window and of 4 above, a
+    whole number of clusters, at most one CTA per SM, the CTAs' parts
+    covering the window and their contiguous ranges covering every row
+    once, however the rows divide."""
+    row_bytes = 2 * ci
+    plan = G.window_gather_plan(rows, w, row_bytes)
+    c, ctas = plan["cluster"], plan["ctas"]
+    assert c == (2 if w * row_bytes <= 96 * 1024 else 4)
+    assert ctas % c == 0 and c <= ctas <= G.SMS
+    assert ctas - c < max(1, -(-rows // G.GATHER_MIN_ROWS))  # no cluster more than the rows need
+    assert plan["part_rows"] * c >= w > plan["part_rows"] * (c - 1)
+    assert plan["smem"] == w * row_bytes <= G.MAX_BULK_BYTES
+    per = plan["rows_per_cta"]
+    starts = [min(rows, b * per) for b in range(ctas)]
+    counts = [min(rows - q0, per) for q0 in starts]
+    assert sum(counts) == rows and all(n >= 0 for n in counts)
+    assert all(q0 + n == q1 for q0, n, q1 in zip(starts, counts, starts[1:] + [rows]))
+    for other in G.GATHER_CLUSTERS:
+        assert G.window_gather_plan(rows, w, row_bytes, other)["cluster"] == other
+
+
+def test_window_gather_refuses(monkeypatch):
+    """What the kernel cannot take raises before any launch: a window past
+    a CTA's shared memory (it is multicast whole to every CTA), a cluster
+    other than 2 or 4, an empty window, rows that are not whole 16-byte
+    chunks, a misaligned window."""
+    with pytest.raises(ValueError, match="shared memory"):
+        G.window_gather_plan(10, 4096, 96)
+    with pytest.raises(ValueError, match="cluster"):
+        G.window_gather_plan(10, 64, 32, cluster=3)
+    with pytest.raises(ValueError, match="empty"):
+        G.window_gather_plan(10, 0, 32)
+    monkeypatch.setattr(G, "on_cuda", lambda *t: True)  # the kernel route, unlaunched
+    idx = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        G.window_gather(torch.zeros((4096, 48), dtype=torch.bfloat16), idx)
+    with pytest.raises(ValueError, match="16-byte"):
+        G.window_gather(torch.zeros((64, 4), dtype=torch.bfloat16), idx)
+    with pytest.raises(ValueError, match="aligned"):
+        G.window_gather(torch.zeros(64 * 16 + 1, dtype=torch.bfloat16)[1:].reshape(64, 16),
+                        idx)
+
+
 # ---- K10 -----------------------------------------------------------------
 
 def _band_inputs(seed, h, ci, co, v, taps):
@@ -509,6 +558,91 @@ def test_band_apply_refuses_bad_shapes():
     assert B.smem_bytes(128, 3, 16, 16, 27) <= B.MAX_SMEM_BYTES
 
 
+@pytest.mark.parametrize("voxels", B.VOXELS_PER_BLOCK)
+@pytest.mark.parametrize("v", [65536, 65496, 1001, 40, 0])
+def test_band_plan_persistent_grid(voxels, v):
+    """K10's launch: tiles of `voxels` voxels walked by a persistent grid of
+    at most BLOCKS_PER_SM blocks per SM, never more blocks than tiles, as
+    many blocks of one SM as fit its shared memory; a consumer warp per 16
+    voxels and the producer warp.  At the probe's V each block walks
+    several tiles."""
+    plan = B.band_plan(v, 3, 16, 16, 27, voxels)
+    assert plan["tiles"] == -(-v // voxels)
+    assert 1 <= plan["blocks"] <= max(1, plan["tiles"])
+    assert plan["blocks"] <= B.SMS * plan["per_sm"]
+    assert plan["per_sm"] <= B.BLOCKS_PER_SM[voxels]
+    assert plan["per_sm"] * (plan["smem"] + 1024) <= B.SM_SMEM_BYTES
+    assert plan["threads"] == 32 * (voxels // 16 + 1)
+    assert plan["smem"] == B.smem_bytes(voxels, 3, 16, 16, 27) <= B.MAX_SMEM_BYTES
+    if v == 65536:
+        assert plan["tiles"] > plan["blocks"]
+
+
+def test_band_smem_bytes_layout():
+    """One block's shared memory, by csrc/exp_bandmm.cu's layout: 1 KB of
+    alignment slack, RING_STAGES stages of H + 1 (Ci, voxels) bf16 blocks
+    and H int32 tap rows each rounded up to a KB, W with rows padded by 8
+    bf16, two (Co, voxels + 4) fp32 out tiles, each consumer warp's source
+    blocks."""
+    assert B.RING_STAGES == 3
+    assert B.smem_bytes(64, 3, 16, 16, 27) == (1024 + 3 * 9216 + 16 * 440 * 2
+                                               + 2 * 16 * 68 * 4 + 4 * 5 * 512)
+    assert B.smem_bytes(128, 3, 16, 16, 27) == (1024 + 3 * 18432 + 14080
+                                                + 2 * 16 * 132 * 4 + 8 * 5 * 512)
+    # H = 5: stages of 14 KB (6 blocks of 2 KB and 1,280 B of taps), 8 slots held
+    assert B.smem_bytes(64, 5, 16, 16, 27) - B.smem_bytes(64, 3, 16, 16, 27) == (
+        3 * (14336 - 9216) + 4 * (10 - 5) * 512)
+    assert B.band_plan(65536, 3, 16, 16, 27, 64)["per_sm"] == 3
+    assert B.band_plan(65536, 3, 16, 16, 27, 128)["per_sm"] == 2
+
+
+@pytest.mark.parametrize("h,ci,co,k,match", [
+    (9, 16, 16, 27, "H <= 8"), (3, 272, 16, 27, "Ci <= 256"), (3, 24, 16, 27, "multiples"),
+    (3, 16, 80, 27, "Co <= 64"), (3, 16, 16, 33, "K <= 32"),
+    (3, 64, 64, 27, "shared memory"),
+])
+def test_band_apply_kernel_route_refuses(monkeypatch, h, ci, co, k, match):
+    """On the kernel route (CUDA tensors; here the CPU ones, unlaunched)
+    every shape the kernel does not take raises before the launch."""
+    monkeypatch.setattr(B, "on_cuda", lambda *t: True)
+    v = 64
+    x = torch.zeros((h, ci, v), dtype=torch.bfloat16)
+    tap = torch.from_numpy(np.full((h, v), k, np.int32))
+    w = torch.zeros((co, k * ci), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=match):
+        B.band_apply(None, x, tap, w, "full", 64)
+
+
+def _cut_source():
+    with open(os.path.join(REPO, "mm2d3d_tpu_torch/csrc/exp_bandmm.cu")) as f:
+        return f.read()
+
+
+def test_stages_cut_texts_occur_once():
+    """`--stages` cuts the kernel's own steps (the fragment build, the
+    product, the band loop, the stores) or turns off the probe shape's own
+    instantiation; each cut's text occurs exactly once in
+    csrc/exp_bandmm.cu, and every variant's source carries its replacements
+    and none of the texts it cut."""
+    src = _cut_source()
+    cuts = exp_bandmm_variants.CUTS
+    assert set(cuts) == {"fragment build", "product", "bands", "stores",
+                         "probe instantiation"}
+    for name, (old, new) in cuts.items():
+        assert src.count(old) == 1, name
+        assert old != new
+    assert set(exp_bandmm_variants.STAGE_VARIANTS) == {
+        "no product", "no fragment build", "no stores", "ring and staging only",
+        "general path"}
+    for variant, names in exp_bandmm_variants.STAGE_VARIANTS.items():
+        cut = src
+        for name in names:
+            old, new = cuts[name]
+            cut = cut.replace(old, new)
+        for name in names:
+            assert cuts[name][0] not in cut and cuts[name][1] in cut, (variant, name)
+
+
 # ---- registry, tools -----------------------------------------------------
 
 def _source_line(ref: str) -> str:
@@ -553,3 +687,29 @@ def test_tool_without_cuda_raises(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tool.main([])
+
+
+def test_probe_ab_cases_are_the_probes():
+    """`tools/slotconv_ab.py --probes` times K9 at the gather probe's three
+    cases and both windows and K10 at both tap tables, E builds and tiles;
+    the calls take any device (here the plain versions), and the K10 inputs
+    are the probe tool's."""
+    calls = dict(kernel_cases.probe_calls(torch.device("cpu")))
+    assert len(calls) == len(exp_dma_gather.CASES) * len(exp_dma_gather.WINDOWS) + 2 * 2 * 2
+    h, v, ci = exp_dma_gather.CASES[0]
+    out = calls[f"K9 H={h} V={v} Ci={ci} w=1024"]()
+    assert out.shape == (h, v, ci) and out.dtype == torch.bfloat16
+    assert [k for k in calls if k.startswith("K10")] == [
+        f"K10 {taps} E={e} {n} voxels" for taps in ("real-table", "flagship L0")
+        for e in B.E_BUILDS for n in B.VOXELS_PER_BLOCK]
+    xm, x, tap, w = kernel_cases.band_inputs(torch.device("cpu"), v=256)
+    assert (x.shape, tap.shape, w.shape) == ((3, 16, 256), (3, 256), (16, 27 * 16))
+
+
+def test_probe_ab_child_loads_this_tree_and_needs_cuda(monkeypatch):
+    """A child run of `slotconv_ab.py --probes` builds its inputs from this
+    tree's `kernel_cases.py` (loaded from its file) and refuses without a
+    CUDA device."""
+    assert callable(slotconv_ab._kernel_cases().probe_calls)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert slotconv_ab.main(["--tree", REPO, "--probes"]) == 1

@@ -599,7 +599,8 @@ def test_window_copy_kernel_bit_equal(dev, ci, w):
 @pytest.mark.parametrize("w", [1024, 2048])
 def test_window_gather_kernel_bit_equal(dev, ci, w):
     """K9 at Ci 16, 32, 48, ids outside the window included: bit-equal; a
-    window larger than a block's shared memory raises."""
+    window larger than a CTA's shared memory (multicast whole to each CTA
+    of the cluster) raises."""
     from mm2d3d_tpu_torch.ops.kernels import exp_gather as G
 
     r = np.random.RandomState(ci * w)
@@ -649,3 +650,102 @@ def test_band_apply_kernel_refuses(dev):
     with pytest.raises(ValueError, match="shared memory"):
         B.band_apply(None, _bf16_dev(r, dev, 3, 64, 256), tap,
                      _bf16_dev(r, dev, 64, 27 * 64), "full", 128)
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+@pytest.mark.parametrize("rows", [1, 7, 131 * 256 + 3, 100003])
+def test_window_gather_kernel_rows_not_whole_clusters(dev, cluster, rows):
+    """K9 whose rows do not divide into whole clusters' worth (the last
+    CTAs' ranges short or empty, fewer rows than one cluster has CTAs):
+    bit-equal, both cluster sizes; one launch per call."""
+    from mm2d3d_tpu_torch.ops.kernels import exp_gather as G
+
+    r = np.random.RandomState(rows)
+    xw = _bf16_dev(r, dev, 1000, 48)
+    idx = torch.from_numpy(r.randint(0, 1000, (rows,)).astype(np.int32)).to(dev)
+    plan = G.window_gather_plan(rows, 1000, 96, cluster)
+    assert plan["ctas"] % cluster == 0
+    before = G.WINDOW_GATHER_KERNEL.launches
+    out = G.window_gather(xw, idx, cluster)
+    assert G.WINDOW_GATHER_KERNEL.launches == before + 1
+    assert torch.equal(out, G.window_gather_ref(xw, idx))
+
+
+@pytest.mark.parametrize("ci,w", [(16, 1024), (48, 2048)])
+def test_window_gather_kernel_ids_outside_window(dev, ci, w):
+    """K9: ids below 0, at w and at the int32 extremes give rows of zeros,
+    the others their window rows, both cluster sizes."""
+    from mm2d3d_tpu_torch.ops.kernels import exp_gather as G
+
+    r = np.random.RandomState(ci + w)
+    xw = _bf16_dev(r, dev, w, ci)
+    ids = r.randint(0, w, (3, 4096)).astype(np.int32)
+    ids[0, :5] = [-1, w, w + 7, 2**31 - 1, -2**31]
+    ids[1, r.rand(4096) < 0.3] = -5
+    idx = torch.from_numpy(ids).to(dev)
+    for cluster in (2, 4):
+        out = G.window_gather(xw, idx, cluster)
+        assert torch.equal(out, G.window_gather_ref(xw, idx))
+        assert not out[0, :5].any()
+
+
+def _band_case(r, dev, v, h=3, ci=16, co=16, taps="real", centre=True):
+    from mm2d3d_tpu_torch.ops.kernels import exp_bandmm as B
+
+    xm = _bf16_dev(r, dev, ci, v) if centre else None
+    x = _bf16_dev(r, dev, h, ci, v)
+    w = _bf16_dev(r, dev, co, 27 * ci)
+    if taps == "real":
+        t = B.real_table_taps(r, h, v)
+    else:  # the TPU probe's recipe, tools/exp_bandmm_variants.py:33-35
+        t = np.sort(r.randint(0, 27, size=(h, v)), axis=0).astype(np.int32)
+        t[r.rand(h, v) > 0.8] = 27
+    return xm, x, torch.from_numpy(t).to(dev), w
+
+
+def _band_holds(xm, x, tap, w):
+    """Both E builds and tiles within 1e-4 * max|plain|, two calls bit-equal."""
+    from mm2d3d_tpu_torch.ops.kernels import exp_bandmm as B
+
+    ref = B.band_apply_ref(xm, x, tap, w)
+    for e_build in B.E_BUILDS:
+        for voxels in B.VOXELS_PER_BLOCK:
+            out = B.band_apply(xm, x, tap, w, e_build, voxels)
+            assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+            assert torch.equal(out, B.band_apply(xm, x, tap, w, e_build, voxels))
+
+
+@pytest.mark.parametrize("case", ["more tiles than blocks", "less than one tile",
+                                  "v not a multiple of 8", "tpu probe taps",
+                                  "tpu probe taps, no centre"])
+def test_band_apply_kernel_edges(dev, case):
+    """K10's persistent grid and ring at their edges: V spanning more tiles
+    than the grid has blocks (each block walks several, the last one
+    ragged), V under one tile, V not a multiple of 8 (no tensor maps: the
+    producer copies elements), and the TPU probe's own taps (duplicates and
+    tap 13 beside the centre: the fp32 path)."""
+    from mm2d3d_tpu_torch.ops.kernels import exp_bandmm as B
+
+    r = np.random.RandomState(len(case))
+    v = {"more tiles than blocks": 3 * 396 * 64 + 40, "less than one tile": 40,
+         "v not a multiple of 8": 4093}.get(case, 8192)
+    if case == "more tiles than blocks":
+        plan = B.band_plan(v, 3, 16, 16, 27, 64)
+        assert plan["tiles"] > 3 * plan["blocks"]
+    taps = "probe" if case.startswith("tpu") else "real"
+    xm, x, tap, w = _band_case(r, dev, v, taps=taps, centre=not case.endswith("no centre"))
+    if taps == "probe":
+        t = tap.cpu().numpy()
+        hit = t < 27
+        assert (t == 13).any() and (hit[1:] & (t[1:] == t[:-1])).any()
+    _band_holds(xm, x, tap, w)
+
+
+@pytest.mark.parametrize("h,ci,co,v", [(5, 16, 16, 3000), (2, 32, 16, 1500),
+                                       (2, 16, 64, 1003), (0, 16, 16, 500)])
+def test_band_apply_kernel_other_shapes(dev, h, ci, co, v):
+    """K10 off the probe's shape (the kernel's general path): more slots
+    than the probe's three, two 16-channel steps, four 16-row chunks of W,
+    the centre alone."""
+    r = np.random.RandomState(h * 1000 + v)
+    _band_holds(*_band_case(r, dev, v, h, ci, co, taps="probe"))
