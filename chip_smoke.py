@@ -69,7 +69,14 @@ probes' sizes and edges, K10 in both E builds and tiles within 1e-4 *
 max|plain| and bit-stable, then runs the two probe tools once
 (`mm2d3d_tpu_torch.tools.exp_dma_gather`, `exp_bandmm_variants`) and
 counts the kernels' launches there; every path above launches none of
-them.  Prints,
+them.  Phase 18 runs the sustained-fit tool
+(`mm2d3d_tpu_torch.tools.bench_e2e`: 32 scans, 2 steps, 0 and 2 loader
+workers; the stage split, `Trainer.fit`, both controls, the fit with
+host-built topologies; every fit's launches per step as predicted, every
+loss finite, no process left) and the topology profile
+(`mm2d3d_tpu_torch.tools.profile_topology`: K3 0, 0, 6 and 6 times over
+its four phases, the last phase's tables identical to `build_topology`'s).
+Prints,
 in its last lines, the card (nvidia-smi name and power
 limit), one JSON line of kernel results, and one JSON line
 {"ok": true, "device": {...}}.  Any failed phase raises, and
@@ -3243,6 +3250,151 @@ def run_phase17(res: Results, dev) -> dict:
     return {"launches": launches, "dma": dma, "band": band, "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# phase 18: the sustained fit (tools/bench_e2e.py) and the topology's phases
+# (tools/profile_topology.py)
+# --------------------------------------------------------------------------
+
+E2E_SCANS, E2E_STEPS = 32, 2  # 2 of an epoch's 4 steps: the phase in its minute
+E2E_ARGS = ["--scans", str(E2E_SCANS), "--steps", str(E2E_STEPS), "--workers", "0", "2"]
+E2E_KEYS = {"wire_format", "cache", "stage_loader_ms_per_batch", "batch_wire_bytes",
+            "stage_transfer_ms_per_batch", "stage_device_step_ms",
+            "loader_scans_per_sec_by_workers", "e2e_steps_measured",
+            "e2e_train_scans_per_sec", "e2e_ms_per_step",
+            "ctrl_host_batches_ms_per_step", "ctrl_device_batches_ms_per_step",
+            "e2e_ms_per_step_host_topology"}
+# host_topology of each fit: warm and timed, for the fit, both controls, then
+# the fit with host-built topologies
+E2E_FITS = [False] * 6 + [True] * 2
+K3_PER_PHASE = [0, 0, 6, 6]  # profile_topology: voxelize, coarsen, nbr, full
+
+
+def run_bench_e2e(dev) -> dict:
+    """18a: `python -m mm2d3d_tpu_torch.tools.bench_e2e` in this process at
+    32 scans, 2 steps, 0 and 2 workers.  Every `Trainer.fit` call's
+    launches (counters read before and after, not reset) held to
+    `expected_train_launches` per step, with and without host-built
+    topologies; every train step's loss finite; the JSON keys; no process
+    left."""
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.tools import bench_e2e
+    from mm2d3d_tpu_torch.train import step as S
+    from mm2d3d_tpu_torch.train import trainer as T
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    with torch.no_grad():
+        hier = build_topology(flagship_batch(0, BATCH, dev), 4096, 7)[1]
+    per_step = {host: expected_train_launches([hier, hier], host_built=host)
+                for host in (False, True)}
+    fits, losses = [], []
+    fit, train_step = T.Trainer.fit, S.MM2D3DTask.train_step
+
+    def counted_fit(self, *args, **kwargs):
+        before, g0 = kernels.counts(), self.global_step
+        out = fit(self, *args, **kwargs)
+        fits.append((self.host_topology, self.global_step - g0,
+                     {k: n - before[k] for k, n in kernels.counts().items()}))
+        return out
+
+    def kept_loss(self, *args, **kwargs):
+        logs = train_step(self, *args, **kwargs)
+        losses.append(logs["train/loss_total"])  # read after the run: no sync here
+        return logs
+
+    before = set(descendants())
+    T.Trainer.fit, S.MM2D3DTask.train_step = counted_fit, kept_loss
+    t0 = time.perf_counter()
+    try:
+        kernels.reset_counts()
+        result = bench_e2e.main(E2E_ARGS)
+        torch.cuda.synchronize()
+        total = kernels.counts()
+    finally:
+        T.Trainer.fit, S.MM2D3DTask.train_step = fit, train_step
+    seconds = time.perf_counter() - t0
+    left = set(descendants()) - before
+    if left:
+        raise AssertionError(f"18a: processes of bench_e2e still running: {left}")
+    if set(result) != E2E_KEYS:
+        raise AssertionError(f"18a: keys {sorted(result)}")
+    times = [v for k, v in result.items() if k not in (
+        "wire_format", "cache", "batch_wire_bytes", "e2e_steps_measured",
+        "loader_scans_per_sec_by_workers")]
+    times += list(result["loader_scans_per_sec_by_workers"].values())
+    if not all(math.isfinite(v) and v > 0 for v in times) or \
+            set(result["loader_scans_per_sec_by_workers"]) != {"0", "2"}:
+        raise AssertionError(f"18a: {result}")
+    if result["e2e_steps_measured"] != min(E2E_STEPS, E2E_SCANS // BATCH):
+        raise AssertionError(f"18a: {result['e2e_steps_measured']} steps timed")
+    if [h for h, _, _ in fits] != E2E_FITS:
+        raise AssertionError(f"18a: fits {[(h, n) for h, n, _ in fits]}")
+    for i, (host, steps, launches) in enumerate(fits):
+        check_counts(launches, {k: n * steps for k, n in per_step[host].items()},
+                     f"18a fit {i} ({steps} steps, host topology {host})")
+    loss = torch.stack([x.float() for x in losses]).cpu()
+    if not torch.isfinite(loss).all():
+        raise AssertionError(f"18a: non-finite losses {loss.tolist()}")
+    for name in ("bandmm", "bandmm_dw", "propagate", "maxpool"):
+        if total[name] <= 0:
+            raise AssertionError(f"18a: {name} not launched")
+    log(f"18a bench_e2e {' '.join(E2E_ARGS)}: {seconds:.1f} s; {len(fits)} fits, "
+        f"launches per step = expected_train_launches (card topologies "
+        f"{per_step[False]}, host topologies K3 {per_step[True]['propagate']}); "
+        f"{len(losses)} train steps, losses finite ({loss.min():.4f}..{loss.max():.4f}); "
+        "no process left")
+    return {"result": result, "per_step": per_step, "launches": total,
+            "seconds": seconds}
+
+
+def run_profile_topology(dev) -> dict:
+    """18b: `python -m mm2d3d_tpu_torch.tools.profile_topology` in this
+    process, as shipped: K3's launches per phase call 0/0/6/6 and no other
+    kernel's, finite positive times, and the `full` phase's tables
+    identical to `build_topology`'s on the same batch."""
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.tools import profile_topology as P
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    out = P.main([])
+    torch.cuda.synchronize()
+    total = kernels.counts()
+    seconds = time.perf_counter() - t0
+    table = out["phases"]
+    if list(table) != list(P.PHASES):
+        raise AssertionError(f"18b: phases {list(table)}")
+    k3 = [table[p]["launches"]["propagate"] for p in P.PHASES]
+    others = {k: n for p in P.PHASES for k, n in table[p]["launches"].items()
+              if k != "propagate" and n}
+    if k3 != K3_PER_PHASE or others or total["propagate"] <= 0:
+        raise AssertionError(f"18b: K3 per phase {k3}, others {others}")
+    for p in P.PHASES:
+        t = table[p]
+        if not all(math.isfinite(t[k]) and t[k] > 0
+                   for k in ("host_ms", "wall_ms", "device_busy_ms", "kernels")):
+            raise AssertionError(f"18b: {p} {t}")
+    batch = P.flagship_batch(dev)
+    with torch.no_grad():
+        n_tables = same_tables(P.phases(batch)[P.PHASES[3]](),
+                               build_topology(batch, 4096, 7),
+                               "18b full phase vs build_topology")
+    log(f"18b profile_topology: {seconds:.1f} s; K3 per phase call {k3}, no other "
+        f"kernel; the full phase's {n_tables} tables identical to build_topology's")
+    return {"result": out, "k3": k3, "seconds": seconds}
+
+
+def run_phase18(dev) -> dict:
+    t0 = time.perf_counter()
+    log("phase 18a: python -m mm2d3d_tpu_torch.tools.bench_e2e " + " ".join(E2E_ARGS))
+    e2e = run_bench_e2e(dev)
+    log("phase 18b: python -m mm2d3d_tpu_torch.tools.profile_topology")
+    topo = run_profile_topology(dev)
+    seconds = time.perf_counter() - t0
+    log(f"phase 18: {seconds:.1f} s")
+    return {"e2e": e2e, "topo": topo, "seconds": seconds}
+
+
 def live_processes():
     """(pid, parent pid, session id) of every live process, read from
     /proc; zombies are left out, they end with their parent."""
@@ -3412,6 +3564,16 @@ def run_all(dev, cli_root: str) -> int:
     log("phase 17: the probe kernels K7-K10 vs their plain versions, then the "
         "probe tools (tools/exp_dma_gather.py, tools/exp_bandmm_variants.py)")
     p17 = run_phase17(res, dev)
+    left = stop_processes()
+    if left:
+        raise AssertionError(f"processes still running after phase 17: {left}")
+
+    log("phase 18: the sustained fit and its controls (tools/bench_e2e.py), the "
+        "topology build by phase (tools/profile_topology.py)")
+    p18 = run_phase18(dev)
+    left = stop_processes()
+    if left:
+        raise AssertionError(f"processes still running after phase 18: {left}")
 
     from mm2d3d_tpu_torch.ops import kernels
 
@@ -3434,7 +3596,11 @@ def run_all(dev, cli_root: str) -> int:
     # "child_slot_case": K1 / K2 over the child slots, down L0 -> L1, tier 1
     # (phase 12d); "dp_cli_launches_per_rank": phase 13c's fit through the
     # CLI, each of the two ranks; the probe kernels K7-K10: phase 17's run
-    # of the probe tools (0 on every path above)
+    # of the probe tools (0 on every path above);
+    # "bench_e2e_launches_per_step": a train step of phase 18a's fits, which
+    # every fit's launches were held to, with the card's and host-built
+    # topologies; "profile_topology_launches": one call of each of phase
+    # 18b's four phases
     path_launches = {"bandmm_dw": train_launches["bandmm_dw"],
                      "tapsum": optin_launches["tapsum"],
                      "head2d": optin_launches["head2d"],
@@ -3471,6 +3637,12 @@ def run_all(dev, cli_root: str) -> int:
             "b24_train_launches_per_step": p15["train"]["launches"][name],
             "autotune_topology_launches": p16["probes"]["topology_launches"][name],
             "autotune_fit_launches_per_step": p16["probes"]["per_step"][name],
+            "bench_e2e_launches_per_step": {
+                "device_topology": p18["e2e"]["per_step"][False][name],
+                "host_topology": p18["e2e"]["per_step"][True][name]},
+            "profile_topology_launches": [
+                p18["topo"]["result"]["phases"][p]["launches"][name]
+                for p in p18["topo"]["result"]["phases"]],
         })
     log(f"slice: {slice_ms:.2f} ms/batch of {BATCH}, {BATCH * 1e3 / slice_ms:.1f} scans/s")
     log(f"train: {train_ms:.2f} ms/step of 2 x {BATCH}, "
@@ -3515,6 +3687,22 @@ def run_all(dev, cli_root: str) -> int:
     log("probe tools (phase 17): " + json.dumps({"exp_dma_gather": p17["dma"],
                                                  "exp_bandmm_variants": p17["band"]})
         + f"; phase 17 {p17['seconds']:.1f} s")
+    e2e = p18["e2e"]["result"]
+    log(f"sustained fit (phase 18a, batch {BATCH} per domain, workers "
+        f"{e2e['loader_scans_per_sec_by_workers']} scans/s): "
+        f"{e2e['e2e_ms_per_step']:.2f} ms/step, {e2e['e2e_train_scans_per_sec']:.2f} "
+        f"scans/s over {e2e['e2e_steps_measured']} steps; controls: host batches "
+        f"{e2e['ctrl_host_batches_ms_per_step']:.2f}, device batches "
+        f"{e2e['ctrl_device_batches_ms_per_step']:.2f} ms/step; stages: loader "
+        f"{e2e['stage_loader_ms_per_batch']:.2f} ms, copy "
+        f"{e2e['stage_transfer_ms_per_batch']:.2f} ms of {e2e['batch_wire_bytes']} "
+        f"bytes, step {e2e['stage_device_step_ms']:.2f} ms; host topologies "
+        f"{e2e['e2e_ms_per_step_host_topology']:.2f} ms/step")
+    log("topology by phase (phase 18b, " + p18["topo"]["result"]["smi"] + "): " + "; ".join(
+        f"{p} host {t['host_ms']:.2f} wall {t['wall_ms']:.2f} device "
+        f"{t['device_busy_ms']:.3f} ms, {t['kernels']:.0f} kernels"
+        for p, t in p18["topo"]["result"]["phases"].items())
+        + f"; phase 18 {p18['seconds']:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -77,7 +77,7 @@ def workers_rule(rates) -> int:
                 if rates[w] >= best * 0.95)
 
 
-def _sync(device) -> None:
+def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -112,16 +112,16 @@ def probe_host_topology(task, host_batches, dev_batches, iters):
     ms = {}
     # device build
     warm_dev = task.forward(dev_batches[0])
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     for i in range(iters):
         task.forward(dev_batches[i % len(dev_batches)])
-    _sync(dev)
+    sync(dev)
     ms["device-topo"] = (time.perf_counter() - t0) / iters * 1000
     # host build, pipelined 3 deep
     with ThreadPoolExecutor(max_workers=3) as pool:
         warm_host = task.forward(dev_batches[0], topo=build(0))
-        _sync(dev)
+        sync(dev)
         for k, v in warm_dev.items():
             if not torch.equal(v, warm_host[k]):
                 raise AssertionError(
@@ -131,7 +131,7 @@ def probe_host_topology(task, host_batches, dev_batches, iters):
         futs = [pool.submit(build, i) for i in range(iters)]
         for i, fut in enumerate(futs):
             task.forward(dev_batches[i % len(dev_batches)], topo=fut.result())
-        _sync(dev)
+        sync(dev)
         ms["host-topo"] = (time.perf_counter() - t0) / iters * 1000
     return ms, {"host_topology": host_topology_rule(ms)}
 
@@ -187,11 +187,11 @@ def probe_prefetch(task, host_batches, iters, depths=(0, 2, 4)):
                 tr.initialized = True  # the task holds its weights already
                 tr.validate = lambda epoch: {}
                 tr.fit()  # warm epoch
-                _sync(task.device)
+                sync(task.device)
                 tr.start_epoch, tr.max_epochs = 1, 2
                 t0 = time.perf_counter()
                 tr.fit()
-                _sync(task.device)
+                sync(task.device)
                 ms[str(depth)] = (time.perf_counter() - t0) / iters * 1000
     finally:
         restore()

@@ -44,6 +44,8 @@ import time
 import numpy as np
 import torch
 
+from .autotune import sync
+
 PATHS = ("numpy", "native", "cache")
 SPLITS = ("train_usa", "train_singapore", "val_singapore", "test_singapore")
 FRAME_WH = (1600, 900)
@@ -138,53 +140,68 @@ def stage_split(cfg: dict, device: str, reps: int = 3, steps: int = 3) -> dict:
     """Loader, copy and train-step ms per batch, one after another."""
     from ..flagship import flagship_task
     from ..run import build_datamodule
-    from ..train.trainer import batch_to_device
 
     dev = torch.device(device)
     if dev.type != "cuda":
         raise RuntimeError("the stage split times the card: pass a CUDA device")
-    dm = build_datamodule(cfg)
-    try:
-        loader = dm.source_train
-        next(iter(loader))  # warm
-        loader.set_epoch(1)
-        t0 = time.perf_counter()
-        host = list(itertools.islice(loader, 2))
-        load_ms = (time.perf_counter() - t0) / 2 * 1e3
-        if len(host) < 2:
-            raise ValueError("the stage split needs two batches of the loader")
-    finally:
-        close(dm)
-    batch_to_device(host[0], dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    on_card = [batch_to_device(b, dev) for b in host]
-    torch.cuda.synchronize()
-    copy_ms = (time.perf_counter() - t0) / len(host) * 1e3
-
     task = flagship_task(device=dev)
     task.init_params(torch.Generator().manual_seed(0))
+    dm = build_datamodule(cfg)
+    try:
+        out, _ = split_stages(dm.source_train, task, 2, reps, steps)
+    finally:
+        close(dm)
+    return {**out, "device": torch.cuda.get_device_name(dev)}
+
+
+def split_stages(loader, task, n_batches: int, reps: int, steps: int):
+    """The unpipelined stages of a train step on the task's device: the
+    loader's ms per batch over `n_batches` (after a warm batch), the copy of
+    those batches to the device (pinned, non-blocking, as `Trainer` copies
+    them) and the train step on the first two copies (2 warm steps, then
+    the median of `reps` samples of `steps`) -> (ms by stage, the host
+    batches)."""
+    from ..train.trainer import batch_to_device
+
+    dev = task.device
+    next(iter(loader))  # warm
+    loader.set_epoch(1)
+    t0 = time.perf_counter()
+    host = list(itertools.islice(loader, n_batches))
+    load_ms = (time.perf_counter() - t0) / n_batches * 1e3
+    if len(host) < max(n_batches, 2):
+        raise ValueError(f"the stage split needs {max(n_batches, 2)} batches of "
+                         f"the loader, it has {len(host)}")
+    batch_to_device(host[0], dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    on_card = [batch_to_device(b, dev) for b in host]
+    sync(dev)
+    copy_ms = (time.perf_counter() - t0) / len(host) * 1e3
+
     gen = torch.Generator(device=dev).manual_seed(0)
     for _ in range(2):
-        task.train_step(*on_card, gen)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+        task.train_step(on_card[0], on_card[1], gen)
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     samples = []
     for _ in range(reps):
         t0 = time.perf_counter()
         for _ in range(steps):
-            logs = task.train_step(*on_card, gen)
-        torch.cuda.synchronize()
+            logs = task.train_step(on_card[0], on_card[1], gen)
+        sync(dev)
         samples.append((time.perf_counter() - t0) / steps * 1e3)
     loss = float(logs["train/loss_total"])
     if not np.isfinite(loss):
         raise AssertionError(f"train/loss_total {loss}")
-    return {"stage_loader_ms_per_batch": load_ms,
-            "stage_transfer_ms_per_batch": copy_ms,
-            "stage_device_step_ms": statistics.median(samples),
-            "stage_device_step_ms_band": [min(samples), max(samples)],
-            "stage_device_step_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "device": torch.cuda.get_device_name(dev)}
+    out = {"stage_loader_ms_per_batch": load_ms,
+           "stage_transfer_ms_per_batch": copy_ms,
+           "stage_device_step_ms": statistics.median(samples),
+           "stage_device_step_ms_band": [min(samples), max(samples)]}
+    if dev.type == "cuda":
+        out["stage_device_step_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out, host
 
 
 def run(scans: int = 48, points: int = 12000, batch: int = 16, workers: int = 0,

@@ -134,19 +134,27 @@ def device_profile(fn, n: int):
     return busy, len(evs) / n, by_kind, by_name
 
 
-def report(stages, reps: int) -> None:
-    """One stage table: every clock reading before the profiler first runs."""
+def report(stages, reps: int, profiled: int = 0) -> dict:
+    """One stage table: every clock reading (`reps` calls a sample) before
+    the profiler first runs over `profiled` calls (`reps` if 0) -> {stage:
+    its numbers per call}."""
     times = {tag: time_stage(fn, reps) for tag, fn in stages.items()}
+    out = {}
     for tag, fn in stages.items():
         host, wall = times[tag]
-        busy, n_kernels, by_kind, by_name = device_profile(fn, reps)
+        busy, n_kernels, by_kind, by_name = device_profile(fn, profiled or reps)
+        syncs = count_syncs(fn)
         print(f"{tag}: host {host:.3f} ms, wall {wall:.3f} ms (no profiler), "
               f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.2%}, "
-              f"{n_kernels:.0f} kernels, {count_syncs(fn)} host syncs")
+              f"{n_kernels:.0f} kernels, {syncs} host syncs")
         for k, t in sorted(by_kind.items(), key=lambda x: -x[1]):
             print(f"    {k:22s} {t:8.3f} ms")
         top = sorted(by_name.items(), key=lambda x: -x[1])[:TOP_KERNELS]
         print("    largest kernels: " + "; ".join(f"{t:.3f} ms {n[:90]}" for n, t in top))
+        out[tag] = {"host_ms": host, "wall_ms": wall, "device_busy_ms": busy,
+                    "idle_share": 1 - busy / wall, "kernels": n_kernels,
+                    "host_syncs": syncs, "device_ms_by_kind": by_kind}
+    return out
 
 
 def train_stages(task, dev, slot_caps):
