@@ -1,0 +1,7 @@
+"""Model FLOPs of the train calls of the profiler-off window over its length and the bf16 peak (989 TFLOP/s), in %."""
+
+from core.readers import mfu_pct
+
+
+def read(rec):
+    return mfu_pct(rec, "train")
