@@ -1,0 +1,7 @@
+"""Host ms in the program's `net2d` span (both domains' 2D forwards) per train call, over the profiler-off window."""
+
+from core.spans import span_ms
+
+
+def read(rec):
+    return span_ms(rec, "train", "net2d")

@@ -23,6 +23,7 @@ import torch
 from . import keys as K
 from .kernels.propagate import propagate_slots, rank_slots
 from .voxelize import VoxelGrid, dedup_sorted
+from ..utils.profiling import span
 
 OFFSETS_27 = np.array(
     list(itertools.product((-1, 0, 1), repeat=3)), dtype=np.int32
@@ -334,17 +335,18 @@ def build_hierarchy(grid: VoxelGrid, num_levels: int,
     the plain child table, as in JAX."""
     grids: List[VoxelGrid] = [grid]
     transitions: List[LevelTransition] = []
-    for l in range(1, num_levels):
-        grid_c, trans = _coarsen_grid(grids[-1], capacity=capacities[l])
-        spec = child_slot_spec(child_slot_caps, l - 1, grid_c.capacity)
-        if spec is not None:
-            h_lo, vh_cap = spec
-            (trans.cslot_src, trans.cslot_tap, trans.cslot_idx, trans.cslot_src2,
-             trans.cslot_tap2, trans.cslot_overflow) = build_child_slots(
-                trans.child, grids[-1].capacity, h_lo,
-                min(vh_cap, grid_c.capacity))
-        grids.append(grid_c)
-        transitions.append(trans)
+    with span("topology/coarsen"):
+        for l in range(1, num_levels):
+            grid_c, trans = _coarsen_grid(grids[-1], capacity=capacities[l])
+            spec = child_slot_spec(child_slot_caps, l - 1, grid_c.capacity)
+            if spec is not None:
+                h_lo, vh_cap = spec
+                (trans.cslot_src, trans.cslot_tap, trans.cslot_idx, trans.cslot_src2,
+                 trans.cslot_tap2, trans.cslot_overflow) = build_child_slots(
+                    trans.child, grids[-1].capacity, h_lo,
+                    min(vh_cap, grid_c.capacity))
+            grids.append(grid_c)
+            transitions.append(trans)
     specs = [_check_spec(l, slot_caps[l])
              if slot_caps is not None and l < len(slot_caps) else None
              for l in range(num_levels)]
@@ -353,32 +355,34 @@ def build_hierarchy(grid: VoxelGrid, num_levels: int,
 
     nbrs = [None] * num_levels
     tier1 = [None] * num_levels  # (src1, tap1, cnt)
-    nbrs[-1] = build_nbr(grids[-1], num_batches)
-    if has_slots[-1]:
-        tier1[-1] = _tier1(nbrs[-1], h1s[-1])
-    for l in range(num_levels - 2, -1, -1):
-        nbrs[l], s1, t1, cnt = propagate_nbr_slots(
-            grids[l], transitions[l], nbrs[l + 1], h1s[l])
-        tier1[l] = (s1, t1, cnt)
+    with span("topology/neighbours"):
+        nbrs[-1] = build_nbr(grids[-1], num_batches)
+        if has_slots[-1]:
+            tier1[-1] = _tier1(nbrs[-1], h1s[-1])
+        for l in range(num_levels - 2, -1, -1):
+            nbrs[l], s1, t1, cnt = propagate_nbr_slots(
+                grids[l], transitions[l], nbrs[l + 1], h1s[l])
+            tier1[l] = (s1, t1, cnt)
 
     levels = []
-    for l, (g, n, spec) in enumerate(zip(grids, nbrs, specs)):
-        lev = _level(g, n)
-        if has_slots[l]:
-            s1, t1, cnt = tier1[l]
-            lev.slot_src, lev.slot_tap = s1, t1
-        if isinstance(spec, tuple) and len(spec) == 5:
-            h1, h2, h_max, vm_cap, vh_cap = spec
-            (lev.slot_idxm, lev.slot_invm, lev.slot_srcm, lev.slot_tapm,
-             lev.slot_idx, lev.slot_src2, lev.slot_tap2, lev.slot_overflow) = (
-                finish_slots_tiered(n, cnt, h1, h2, h_max,
-                                    min(vm_cap, g.capacity),
-                                    min(vh_cap, g.capacity)))
-        elif isinstance(spec, tuple):
-            h_lo, h_max, vh_cap = spec
-            lev.slot_idx, lev.slot_src2, lev.slot_tap2, lev.slot_overflow = (
-                finish_slots_split(n, cnt, h_lo, h_max, min(vh_cap, g.capacity)))
-        elif spec:
-            lev.slot_overflow = _over_tail(cnt, spec)
-        levels.append(lev)
+    with span("topology/slots"):
+        for l, (g, n, spec) in enumerate(zip(grids, nbrs, specs)):
+            lev = _level(g, n)
+            if has_slots[l]:
+                s1, t1, cnt = tier1[l]
+                lev.slot_src, lev.slot_tap = s1, t1
+            if isinstance(spec, tuple) and len(spec) == 5:
+                h1, h2, h_max, vm_cap, vh_cap = spec
+                (lev.slot_idxm, lev.slot_invm, lev.slot_srcm, lev.slot_tapm,
+                 lev.slot_idx, lev.slot_src2, lev.slot_tap2, lev.slot_overflow) = (
+                    finish_slots_tiered(n, cnt, h1, h2, h_max,
+                                        min(vm_cap, g.capacity),
+                                        min(vh_cap, g.capacity)))
+            elif isinstance(spec, tuple):
+                h_lo, h_max, vh_cap = spec
+                lev.slot_idx, lev.slot_src2, lev.slot_tap2, lev.slot_overflow = (
+                    finish_slots_split(n, cnt, h_lo, h_max, min(vh_cap, g.capacity)))
+            elif spec:
+                lev.slot_overflow = _over_tail(cnt, spec)
+            levels.append(lev)
     return Hierarchy(levels=tuple(levels), transitions=tuple(transitions))

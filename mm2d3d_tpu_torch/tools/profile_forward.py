@@ -27,7 +27,6 @@ import statistics
 import subprocess
 import sys
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -37,6 +36,7 @@ from ..data.synthetic import make_batch
 from ..flagship import flagship_task
 from ..models.net2d import Net2DSeg
 from ..train.batch import build_topology, flatten_points, prepare_device_batch
+from ..utils.profiling import count_syncs
 
 BATCH = 8
 REPS = 8  # calls per sample
@@ -99,18 +99,6 @@ def time_stage(fn, n: int):
         host.append((t1 - t0) * 1e3 / n)
         wall.append((time.perf_counter() - t0) * 1e3 / n)
     return statistics.median(host), statistics.median(wall)
-
-
-def count_syncs(fn) -> int:
-    """Host-device synchronisations one call makes (CUDA sync debug mode)."""
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            fn()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def device_profile(fn, n: int):

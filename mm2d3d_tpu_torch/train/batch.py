@@ -17,6 +17,7 @@ import torch
 from ..ops.hierarchy import Hierarchy, build_hierarchy
 from ..ops.image import apply_color_jitter
 from ..ops.voxelize import VoxelGrid, voxelize
+from ..utils.profiling import span
 
 
 @dataclass
@@ -182,8 +183,9 @@ def build_topology(batch: PointBatch, full_scale: int, num_levels: int,
         if slot_caps != "default":
             raise ValueError(f"unknown slot caps {slot_caps!r}")
         slot_caps = default_slot_caps(num_levels, capacities, slot_profile)
-    grid = voxelize(coords, bidx, mask, full_scale, capacity=capacities[0],
-                    presorted=batch.coords_sorted)
+    with span("topology/voxelize"):
+        grid = voxelize(coords, bidx, mask, full_scale, capacity=capacities[0],
+                        presorted=batch.coords_sorted)
     hier = build_hierarchy(grid, num_levels, capacities, slot_caps,
                            num_batches=batch.batch_size,
                            child_slot_caps=child_slot_caps)

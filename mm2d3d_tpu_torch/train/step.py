@@ -35,6 +35,8 @@ from ..models.resnet2d import BatchNorm2d
 from ..models.sparse_unet import (
     DownConv, MaskedBatchNorm, Net3DSeg, ResidualBlock, SubmConv, UpConv,
 )
+from ..utils import profiling
+from ..utils.profiling import span
 from .batch import PointBatch, build_topology, flatten_points, prepare_device_batch
 from .losses import IGNORE_INDEX, kl_consistency, weighted_cross_entropy
 from .metrics import confusion_matrix_update
@@ -222,16 +224,21 @@ class MM2D3DTask:
     def _forward(self, batch: PointBatch, topo=None):
         self.model2d.eval()
         self.model3d.eval()
-        batch = prepare_device_batch(batch)
+        with span("prepare"):
+            batch = prepare_device_batch(batch)
+            _, feats, labels, mask, _ = flatten_points(batch)
         if topo is None:
-            topo = self.build_topology(batch)
-        _, feats, labels, mask, _ = flatten_points(batch)
-        p2, _, _ = self.model2d(batch.img, batch.depth, batch.img_indices,
-                                batch.point_mask, with_features=False)
-        p3, _, _ = self.model3d(feats, *topo)
-        flat2 = p2["seg_logit"].reshape(-1, self.num_classes).float()
-        flat3 = p3["seg_logit"].float()
-        ens = (torch.softmax(flat2, -1) + torch.softmax(flat3, -1)) / 2
+            with span("topology"):
+                topo = self.build_topology(batch)
+        with span("net2d"):
+            p2, _, _ = self.model2d(batch.img, batch.depth, batch.img_indices,
+                                    batch.point_mask, with_features=False)
+        with span("net3d"):
+            p3, _, _ = self.model3d(feats, *topo)
+        with span("metrics"):
+            flat2 = p2["seg_logit"].reshape(-1, self.num_classes).float()
+            flat3 = p3["seg_logit"].float()
+            ens = (torch.softmax(flat2, -1) + torch.softmax(flat3, -1)) / 2
         return topo, p2, p3, flat2, flat3, ens, labels, mask
 
     @torch.inference_mode()
@@ -301,9 +308,11 @@ class MM2D3DTask:
                      topo_trg=None):
         """The batches prepared and both topologies built (unless given):
         the first stage of `train_step` -> (src, trg, topo_src, topo_trg)."""
-        src = prepare_device_batch(src)
-        trg = prepare_device_batch(trg)
-        with torch.no_grad():  # not inference_mode: the backward reads the tables
+        with span("prepare"):
+            src = prepare_device_batch(src)
+            trg = prepare_device_batch(trg)
+        # not inference_mode: the backward reads the tables
+        with torch.no_grad(), span("topology"):
             if topo_src is None:
                 topo_src = self.build_topology(src)
             if topo_trg is None:
@@ -319,34 +328,41 @@ class MM2D3DTask:
         self.model2d.train()
         self.model3d.train()
         nc = self.num_classes
-        _, feats_src, labels_src, mask_src, _ = flatten_points(src)
-        _, feats_trg, _, mask_trg, _ = flatten_points(trg)
+        with span("prepare"):
+            _, feats_src, labels_src, mask_src, _ = flatten_points(src)
+            _, feats_trg, _, mask_trg, _ = flatten_points(trg)
 
         # source domain
-        p2s, _, a2s = self.model2d(src.img, src.depth, src.img_indices,
-                                   src.point_mask, generator, with_features=False)
-        p3s, _, a3s = self.model3d(feats_src, *topo_src)
-        flat2s = p2s["seg_logit"].reshape(-1, nc)
-        seg_loss_src_2d = self._seg_loss(flat2s, labels_src, mask_src)
-        seg_loss_src_3d = self._seg_loss(p3s["seg_logit"], labels_src, mask_src)
-        xm_src_2d = kl_consistency(a2s["seg_logit_avg"].reshape(-1, nc),
-                                   p3s["seg_logit"], mask_src)
-        xm_src_3d = kl_consistency(a3s["seg_logit_point"], flat2s, mask_src)
+        with span("net2d"):
+            p2s, _, a2s = self.model2d(src.img, src.depth, src.img_indices,
+                                       src.point_mask, generator, with_features=False)
+        with span("net3d"):
+            p3s, _, a3s = self.model3d(feats_src, *topo_src)
+        with span("losses"):
+            flat2s = p2s["seg_logit"].reshape(-1, nc)
+            seg_loss_src_2d = self._seg_loss(flat2s, labels_src, mask_src)
+            seg_loss_src_3d = self._seg_loss(p3s["seg_logit"], labels_src, mask_src)
+            xm_src_2d = kl_consistency(a2s["seg_logit_avg"].reshape(-1, nc),
+                                       p3s["seg_logit"], mask_src)
+            xm_src_3d = kl_consistency(a3s["seg_logit_point"], flat2s, mask_src)
 
         # target domain
-        p2t, _, a2t = self.model2d(trg.img, trg.depth, trg.img_indices,
-                                   trg.point_mask, generator, with_features=False)
-        p3t, _, a3t = self.model3d(feats_trg, *topo_trg)
-        flat2t = p2t["seg_logit"].reshape(-1, nc)
-        xm_trg_2d = kl_consistency(a2t["seg_logit_avg"].reshape(-1, nc),
-                                   p3t["seg_logit"], mask_trg)
-        xm_trg_3d = kl_consistency(a3t["seg_logit_point"], flat2t, mask_trg)
+        with span("net2d"):
+            p2t, _, a2t = self.model2d(trg.img, trg.depth, trg.img_indices,
+                                       trg.point_mask, generator, with_features=False)
+        with span("net3d"):
+            p3t, _, a3t = self.model3d(feats_trg, *topo_trg)
+        with span("losses"):
+            flat2t = p2t["seg_logit"].reshape(-1, nc)
+            xm_trg_2d = kl_consistency(a2t["seg_logit_avg"].reshape(-1, nc),
+                                       p3t["seg_logit"], mask_trg)
+            xm_trg_3d = kl_consistency(a3t["seg_logit_point"], flat2t, mask_trg)
 
-        loss_2d = (seg_loss_src_2d + self.lambda_xm_src * xm_src_2d
-                   + self.lambda_xm_trg * xm_trg_2d)
-        loss_3d = (seg_loss_src_3d + self.lambda_xm_src * xm_src_3d
-                   + self.lambda_xm_trg * xm_trg_3d)
-        total = loss_2d + loss_3d
+            loss_2d = (seg_loss_src_2d + self.lambda_xm_src * xm_src_2d
+                       + self.lambda_xm_trg * xm_trg_2d)
+            loss_3d = (seg_loss_src_3d + self.lambda_xm_src * xm_src_3d
+                       + self.lambda_xm_trg * xm_trg_3d)
+            total = loss_2d + loss_3d
         return total, {
             "train/loss_segmentation": seg_loss_src_2d,
             "train/loss_segmentation_3d": seg_loss_src_3d,
@@ -357,6 +373,7 @@ class MM2D3DTask:
             "train/loss_total": total,
         }
 
+    @profiling.step("train")
     def train_step(self, src: PointBatch, trg: PointBatch,
                    generator: torch.Generator, topo_src=None, topo_trg=None,
                    ) -> Dict[str, torch.Tensor]:
@@ -368,23 +385,26 @@ class MM2D3DTask:
         src, trg, topo_src, topo_trg = self.train_inputs(src, trg, topo_src,
                                                          topo_trg)
         total, losses = self.train_losses(src, trg, topo_src, topo_trg, generator)
-        self.opt2d.zero_grad(set_to_none=True)
-        self.opt3d.zero_grad(set_to_none=True)
-        total.backward()
+        with span("optimizer"):
+            self.opt2d.zero_grad(set_to_none=True)
+            self.opt3d.zero_grad(set_to_none=True)
+        with span("backward"):
+            total.backward()
 
-        logs = {k: v.detach() for k, v in losses.items()}
-        hiers = (topo_src[1], topo_trg[1])
-        zero = torch.zeros((), device=self.device)
-        # a level at capacity drops voxels; 0 = healthy
-        logs["train/voxel_overflow_levels"] = sum(
-            (lvl.num_voxels >= lvl.capacity).float()
-            for h in hiers for lvl in h.levels) + zero
-        # hits dropped by the slot tables (void the gradients); 0 = healthy
-        logs["train/nbr_slot_overflow"] = sum(
-            slot_overflow(h) for h in hiers) + zero
-        if src.n_dropped is not None:
-            logs["train/points_dropped"] = (
-                src.n_dropped.sum() + trg.n_dropped.sum()).float()
+        with span("logs"):
+            logs = {k: v.detach() for k, v in losses.items()}
+            hiers = (topo_src[1], topo_trg[1])
+            zero = torch.zeros((), device=self.device)
+            # a level at capacity drops voxels; 0 = healthy
+            logs["train/voxel_overflow_levels"] = sum(
+                (lvl.num_voxels >= lvl.capacity).float()
+                for h in hiers for lvl in h.levels) + zero
+            # hits dropped by the slot tables (void the gradients); 0 = healthy
+            logs["train/nbr_slot_overflow"] = sum(
+                slot_overflow(h) for h in hiers) + zero
+            if src.n_dropped is not None:
+                logs["train/points_dropped"] = (
+                    src.n_dropped.sum() + trg.n_dropped.sum()).float()
         if self.group is not None:
             # what the JAX step pmeans, where it does: after both domains'
             # forwards moved the running statistics, before the optimizers
@@ -398,31 +418,34 @@ class MM2D3DTask:
                         if name.endswith(("running_mean", "running_var"))]
                      + list(logs.values()), self.group)
 
-        self.opt2d.step()
-        self.opt3d.step()
-        self.sched2d.step()
-        self.sched3d.step()
+        with span("optimizer"):
+            self.opt2d.step()
+            self.opt3d.step()
+            self.sched2d.step()
+            self.sched3d.step()
         self.step += 1
         return logs
 
+    @profiling.step("eval")
     @torch.inference_mode()
     def eval_step(self, batch: PointBatch, metrics: Optional[EvalMetrics] = None,
                   topo=None) -> Tuple[EvalMetrics, Dict[str, torch.Tensor]]:
         """One eval batch: losses + confusion-matrix updates.  `topo` is a
         precomputed topology of the batch, or None to build the default one."""
-        if metrics is None:
-            metrics = EvalMetrics.create(self.num_classes, self.device)
         (grid, hier), _, _, flat2, flat3, ens, labels, mask = self._forward(batch, topo)
-        new = EvalMetrics(
-            cm_2d=confusion_matrix_update(metrics.cm_2d, flat2.argmax(-1), labels, mask),
-            cm_3d=confusion_matrix_update(metrics.cm_3d, flat3.argmax(-1), labels, mask),
-            cm_avg=confusion_matrix_update(metrics.cm_avg, ens.argmax(-1), labels, mask),
-        )
-        logs = {
-            "loss_segmentation": self._seg_loss(flat2, labels, mask),
-            "loss_segmentation_3d": self._seg_loss(flat3, labels, mask),
-            "valid_weight": self.seg_loss_weight(labels, mask),
-            "nbr_slot_overflow": slot_overflow(hier)
-            + torch.zeros((), device=self.device),
-        }
+        with span("metrics"):
+            if metrics is None:
+                metrics = EvalMetrics.create(self.num_classes, self.device)
+            new = EvalMetrics(
+                cm_2d=confusion_matrix_update(metrics.cm_2d, flat2.argmax(-1), labels, mask),
+                cm_3d=confusion_matrix_update(metrics.cm_3d, flat3.argmax(-1), labels, mask),
+                cm_avg=confusion_matrix_update(metrics.cm_avg, ens.argmax(-1), labels, mask),
+            )
+            logs = {
+                "loss_segmentation": self._seg_loss(flat2, labels, mask),
+                "loss_segmentation_3d": self._seg_loss(flat3, labels, mask),
+                "valid_weight": self.seg_loss_weight(labels, mask),
+                "nbr_slot_overflow": slot_overflow(hier)
+                + torch.zeros((), device=self.device),
+            }
         return new, logs

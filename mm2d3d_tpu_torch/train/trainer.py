@@ -50,6 +50,7 @@ import torch.distributed as dist
 from ..data import host_topology as HT
 from ..data.loader import max_size_cycle, prefetch_topology_pairs, prefetched
 from ..parallel import mesh
+from ..utils import profiling
 from ..utils.logging import rank_zero
 from ..utils.visualize import PALETTES, draw_points_image_labels_with_confidence
 from .batch import PointBatch, prepare_device_batch
@@ -66,6 +67,13 @@ _OVERFLOW_FIXES = {
     "train/voxel_overflow_levels":
         "raise the level capacities (train.batch.default_capacities)",
 }
+
+
+def _median_ms(spans, name: str) -> str:
+    """", median <name> <ms> ms" over the steps' span records that hold
+    `name`, or "" if none does."""
+    ns = [s[name] for s in spans if name in s]
+    return f", median {name} {float(np.median(ns)) / 1e6:.1f} ms" if ns else ""
 
 
 class CheckpointIO:
@@ -254,7 +262,7 @@ class Trainer:
     def fit(self, resume: bool = False) -> MM2D3DTask:
         if not self.initialized:
             self.init_or_resume(resume=resume)
-        pending_logs = None  # (step, device logs), read back one step late
+        pending_logs = None  # (step, device logs, spans), read back one step late
         overflow_hist = []  # without a logger: the per-step overflow scalars
         self._overflow_warned = set()
         for epoch in range(self.start_epoch, self.max_epochs):
@@ -270,25 +278,33 @@ class Trainer:
             items = (self._item_to_device(item) for item in pairs)
             if self.prefetch_batches:
                 items = prefetched(items, self.prefetch_batches)
+            spans = []  # each step's span record
             try:
-                for src, trg, *topos in items:
+                item = next(items, None)
+                while item is not None:
+                    src, trg, *topos = item
                     if (self.train_log_images_step
                             and self.global_step % self.train_log_images_step == 0):
                         self._log_images(src, "train_source")
                         self._log_images(trg, "train_target")
-                    logs = self.task.train_step(src, trg, self.generator, *topos)
-                    self.global_step += 1
-                    n += 1
-                    # the previous step's scalars, read while this one runs
-                    if pending_logs is not None and self.logger is not None:
-                        self._flush_train_logs(*pending_logs)
-                    elif pending_logs is not None:
-                        s_prev, l_prev = pending_logs
-                        overflow_hist.append((s_prev, {
-                            k: l_prev[k] for k in _OVERFLOW_FIXES if k in l_prev}))
-                    pending_logs = (self.global_step, logs)
-                    if self.limit_train_batches and n >= self.limit_train_batches:
-                        break
+                    # one record: the step, then the wait for the next item
+                    with profiling.call("train") as rec:
+                        logs = self.task.train_step(src, trg, self.generator, *topos)
+                        self.global_step += 1
+                        n += 1
+                        # the previous step's scalars, read while this one runs
+                        if pending_logs is not None and self.logger is not None:
+                            self._flush_train_logs(*pending_logs)
+                        elif pending_logs is not None:
+                            s_prev, l_prev, _ = pending_logs
+                            overflow_hist.append((s_prev, {
+                                k: l_prev[k] for k in _OVERFLOW_FIXES if k in l_prev}))
+                        pending_logs = (self.global_step, logs, rec["spans"])
+                        spans.append(rec["spans"])
+                        if self.limit_train_batches and n >= self.limit_train_batches:
+                            break
+                        with profiling.span("fit/loader_wait"):
+                            item = next(items, None)
             finally:
                 items.close()  # stops the prefetch thread now, not at collection
                 pairs.close()  # and the topology pool
@@ -299,7 +315,8 @@ class Trainer:
             self._check_overflow_history(overflow_hist)
             overflow_hist = []
             if self._rank0:
-                print(f"epoch {epoch}: {n} steps in {time.time() - t_epoch:.1f}s",
+                print(f"epoch {epoch}: {n} steps in {time.time() - t_epoch:.1f}s"
+                      + _median_ms(spans, "step") + _median_ms(spans, "fit/loader_wait"),
                       flush=True)
             if (epoch + 1) % self.check_val_every == 0 or epoch == self.max_epochs - 1:
                 self.validate(epoch)
@@ -331,7 +348,11 @@ class Trainer:
                 i = int(nz[0])
                 self._warn_overflow(key, float(arr[i]), entries[i][0])
 
-    def _flush_train_logs(self, step: int, logs) -> None:
+    def _flush_train_logs(self, step: int, logs,
+                          spans: Optional[Dict[str, int]] = None) -> None:
+        """The step's logs, its learning rates and its spans' host ms
+        (`time/<span>_ms`, from the step's record) to the logger, one
+        device-to-host copy."""
         keys = list(logs)
         vals = torch.stack([logs[k].float() for k in keys]).cpu()  # one copy
         host = dict(zip(keys, map(float, vals)))
@@ -339,7 +360,8 @@ class Trainer:
             if host.get(key, 0.0) > 0:
                 self._warn_overflow(key, host[key], step)
         if self.logger is not None:
-            self.logger.log_metrics({**host, **self.task.current_lrs(step)}, step)
+            times = {f"time/{name}_ms": ns / 1e6 for name, ns in (spans or {}).items()}
+            self.logger.log_metrics({**host, **self.task.current_lrs(step), **times}, step)
 
     def _log_images(self, batch: PointBatch, stage: str) -> None:
         """The 5-panel figure of the batch's first scan (the JAX trainer's

@@ -8,7 +8,7 @@
   for file (the numpy image ops on both sides), and the JAX `ImageCache`
   reads it.
 - `utils/depth.py::filter_depth` equal to JAX's.
-- `utils/profiling.py`: `StepTimer` medians and `trace`'s Chrome trace.
+- `utils/profiling.py`: the spans' records and `trace`'s Chrome trace.
 """
 
 import json
@@ -22,7 +22,7 @@ import torch
 
 from mm2d3d_tpu_torch.tools import cache_images, doctor
 from mm2d3d_tpu_torch.utils.depth import filter_depth
-from mm2d3d_tpu_torch.utils.profiling import StepTimer, trace
+from mm2d3d_tpu_torch.utils.profiling import call, records, span, trace
 
 PSELAB_KEYS = ("probs_2d", "pseudo_label_2d", "probs_3d", "pseudo_label_3d",
                "probs_ensemble", "pseudo_label_ensemble")
@@ -199,23 +199,29 @@ def test_filter_depth_drops_the_occluded_return():
 
 
 def test_step_timer_medians_per_phase():
-    timer = StepTimer(device="cpu")
-    for dt in (0.001, 0.003, 0.002):
-        with timer.phase("step"):
-            torch.ones(8).sum()
-            import time
+    """The spans that replace `StepTimer`: host time per named span in each
+    call's record, summed over the span's uses, kept when the block raises."""
+    import time
 
+    for dt in (0.001, 0.003, 0.002):
+        with call("train") as rec, span("step"):
+            torch.ones(8).sum()
             time.sleep(dt)
-    with timer.phase("eval"):
+    with call("eval"), span("eval"):
         pass
-    s = timer.summary()
-    assert set(s) == {"time/step_ms", "time/eval_ms"}
-    assert 2.0 <= s["time/step_ms"] < 50 and s["time/eval_ms"] < s["time/step_ms"]
-    assert timer.summary() == {}  # reset
-    with pytest.raises(ValueError):
-        with timer.phase("raises"):
-            raise ValueError
-    assert "time/raises_ms" in timer.summary(reset=False)
+    train, ev = records("train")[-3:], records("eval")[-1]
+    assert train[-1] is rec and [set(r["spans"]) for r in train] == [{"step"}] * 3
+    step_ms = float(np.median([r["spans"]["step"] for r in train])) / 1e6
+    assert 2.0 <= step_ms < 50 and ev["spans"]["eval"] / 1e6 < step_ms
+    with call("train") as rec:
+        with pytest.raises(ValueError):
+            with span("raises"):
+                raise ValueError
+        with span("twice"):
+            time.sleep(0.001)
+        with span("twice"):
+            time.sleep(0.001)
+    assert set(rec["spans"]) == {"raises", "twice"} and rec["spans"]["twice"] >= 2e6
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -73,7 +73,10 @@ class Recorder:
         self.calls.append((step, {k: float(v) for k, v in metrics.items()}))
 
     def train_logs(self):
-        return [(s, m) for s, m in self.calls if "train/loss_total" in m]
+        """The train steps' logs, without the spans' host times
+        (`time/<span>_ms`), which differ from run to run."""
+        return [(s, {k: v for k, v in m.items() if not k.startswith("time/")})
+                for s, m in self.calls if "train/loss_total" in m]
 
 
 @pytest.fixture
