@@ -450,6 +450,45 @@ def check_k5(res: Results, dev) -> None:
             del y
 
 
+def check_bn(res: Results, dev) -> None:
+    """The train-form BatchNorm kernels (forward and backward, four
+    launches) against their plain versions at every call form of
+    `kernel_cases.BN_CASES`: the flagship's at its train batch (stride 1
+    and 2 at 64 channels, stride 16 at 512; each epilogue; the stems' halves
+    read in place) and the KITTI configs' largest, by `kernel_cases.bn_check`
+    (two calls the same bits, the ReLU bits as the plain mask outside the
+    rounding band); the error is the worst output's share of its tolerance.
+    Timed: the four passes without autograd.  The yardstick is cuDNN's
+    train-form `F.batch_norm`, forward and backward, without the epilogue,
+    on a contiguous copy of x (the port never calls it)."""
+    from mm2d3d_tpu_torch.tools.kernel_cases import (
+        BN_CASES, bn_bytes, bn_check, bn_inputs, bn_passes)
+
+    for name, case in BN_CASES.items():
+        epi, y_dtype = case[2], case[4]
+        inputs = bn_inputs(case, dev, seed=7)
+        errs = bn_check(inputs, epi, y_dtype)
+        # timed: the four passes alone, without autograd's bookkeeping
+        x, weight, bias, ident, rm, rv, dy = inputs
+        timed = (x, weight, bias, ident, rm.clone(), rv.clone(), dy)
+        ms = cuda_ms(lambda: bn_passes(timed, epi, y_dtype), reps=10)
+        plain = cuda_ms(lambda: bn_passes(timed, epi, y_dtype, plain=True), reps=5)
+        xl = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+        wl, bl = weight.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        rm, rv = rm.clone(), rv.clone()
+
+        def library():
+            y = F.batch_norm(xl, rm, rv, wl, bl, training=True, momentum=0.1, eps=1e-5)
+            return torch.autograd.grad(y, (xl, wl, bl), dy.to(y.dtype))
+
+        lib_ms = cuda_ms(library, reps=10)
+        worst = max(errs, key=errs.get)
+        res.add("batchnorm2d", f"{name} {epi} {str(case[3])[6:]}->{str(y_dtype)[6:]} "
+                f"(worst: {worst})", errs[worst], 1.0, ms, plain, bound(bn_bytes(case)),
+                lib_ms)
+        del inputs, timed, x, xl, ident, dy
+
+
 # --------------------------------------------------------------------------
 # phase 4: the slice, bf16, batch 8, through the counted kernels
 # --------------------------------------------------------------------------
@@ -828,20 +867,23 @@ def expected_optin_launches(hier) -> dict:
     n = len(hier.levels)
     assert all(lvl.slot_src is None for lvl in hier.levels)
     return {"propagate": n - 1, "maxpool": 2, "head2d": 1, "tapsum": 2 * n,
-            "bandmm": 2 * (n - 1), "bandmm_dw": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
+            "bandmm": 2 * (n - 1), "bandmm_dw": 0, "batchnorm2d": 0,
+            **dict.fromkeys(PROBE_KERNELS, 0)}
 
 
 def expected_optin_train_launches(hiers) -> dict:
     """Per train step, per domain: the forward's launches with K6 and K1
     twice (forward and input gradient), K2 once per strided conv (weight
     gradient); the dense convs' weight gradients and K5's backward are
-    plain PyTorch, as the JAX package's are XLA's."""
+    plain PyTorch, as the JAX package's are XLA's; the 2D BatchNorms as on
+    the default path."""
     out = dict.fromkeys(("propagate", "maxpool", "head2d", "tapsum", "bandmm",
-                         "bandmm_dw", *PROBE_KERNELS), 0)
+                         "bandmm_dw", "batchnorm2d", *PROBE_KERNELS), 0)
     for hier in hiers:
         ev = expected_optin_launches(hier)
         for k in ("propagate", "maxpool", "head2d"):
             out[k] += ev[k]
+        out["batchnorm2d"] += expected_train_launches([hier])["batchnorm2d"]
         out["tapsum"] += 2 * ev["tapsum"]
         out["bandmm"] += 2 * ev["bandmm"]
         out["bandmm_dw"] += ev["bandmm"]
@@ -1424,7 +1466,8 @@ def run_kitti_config(dev, config: str, roots: dict, root: str, extra=()):
 
     def expected(kept):
         exp = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0,
-               "head2d": 0, "tapsum": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
+               "head2d": 0, "tapsum": 0, "batchnorm2d": 0,
+               **dict.fromkeys(PROBE_KERNELS, 0)}
         for kind, hier in kept:
             one = (expected_launches(hier) if kind in ("eval", "viz") else
                    expected_train_launches([hier], host_built=kind == "host"))
@@ -1898,8 +1941,8 @@ def run_options_cli(dev) -> dict:
             for l, lev in enumerate(hier.levels):
                 if int(lev.num_voxels) >= lev.capacity:
                     raise AssertionError(f"options fit: level {l} at capacity")
-            one = (expected_train_launches([hier], residual=True) if train
-                   else expected_launches(hier, residual=True))
+            one = (expected_train_launches([hier], residual=True, frozen_bn=True)
+                   if train else expected_launches(hier, residual=True))
             for name, n in one.items():
                 exp[name] += n
         if sum(t for t, _ in builds) != 8:
@@ -2171,7 +2214,8 @@ def run_cli_data_parallel(dev) -> dict:
 
         def expected(r):
             exp = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0,
-                   "head2d": 0, "tapsum": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
+                   "head2d": 0, "tapsum": 0, "batchnorm2d": 0,
+                   **dict.fromkeys(PROBE_KERNELS, 0)}
             for t in r["topologies"]:
                 for k, n in t["expected"].items():
                     exp[k] += n
@@ -2301,7 +2345,8 @@ def run_data_parallel(dev) -> dict:
 
 # launches per generated scan: one eval forward at batch 1 (PERF.md, Findings)
 GEN_PER_SCAN = {"bandmm": 51, "propagate": 6, "maxpool": 2, "bandmm_dw": 0,
-                "head2d": 0, "tapsum": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
+                "head2d": 0, "tapsum": 0, "batchnorm2d": 0,
+                **dict.fromkeys(PROBE_KERNELS, 0)}
 PSELAB_MARGIN, PSELAB_PROB_TOL = 1e-3, 1e-4  # card vs CPU records, fp32
 FIG_STEPS = 2
 FIG_MIN_POINTS = 100  # points alone under their markers in 14c's figure
@@ -3476,6 +3521,7 @@ def run_all(dev, cli_root: str) -> int:
     check_k2(res, dev)
     check_k6(res, dev)
     check_k5(res, dev)
+    check_bn(res, dev)
 
     log("phase 4: slice, bf16, batch 8")
     launches, slice_ms = run_slice(dev)
@@ -3585,7 +3631,8 @@ def run_all(dev, cli_root: str) -> int:
                  "exp_group_gather": "H=3 V=65536 Ci=16 G=8",
                  "exp_window_copy": "H=3 V=65536 Ci=16 w=1024",
                  "exp_window_gather": "H=3 V=65536 Ci=16 w=1024",
-                 "exp_bandmm": "real-table E=full 64 voxels/block V=65536"}
+                 "exp_bandmm": "real-table E=full 64 voxels/block V=65536",
+                 "batchnorm2d": "flagship stem rgb"}
     # each kernel's launches on the path it runs on: the eval forward of
     # phase 4 (K1, K3, K4), the train step of phase 6 (K2), the opt-in eval
     # forward of phase 8 (K5, K6); "cli_launches": phase 10's fit through
@@ -3602,6 +3649,7 @@ def run_all(dev, cli_root: str) -> int:
     # topologies; "profile_topology_launches": one call of each of phase
     # 18b's four phases
     path_launches = {"bandmm_dw": train_launches["bandmm_dw"],
+                     "batchnorm2d": train_launches["batchnorm2d"],
                      "tapsum": optin_launches["tapsum"],
                      "head2d": optin_launches["head2d"],
                      **{k: p17["launches"][k] for k in PROBE_KERNELS}}

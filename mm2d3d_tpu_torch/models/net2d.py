@@ -48,7 +48,7 @@ class UpStage(nn.Module):
         cd = self.compute_dtype
         y = F.conv_transpose2d(x.to(cd), self.tconv.weight.to(cd),
                                self.tconv.bias.to(cd), stride=2)
-        return torch.relu(self.bn(y))
+        return self.bn(y, relu=True)
 
 
 class FuseStage(nn.Module):
@@ -62,7 +62,7 @@ class FuseStage(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv2d(x, self.conv.weight, self.conv.bias, 1, 1, self.compute_dtype)
-        return torch.relu(self.bn(y))
+        return self.bn(y, relu=True)
 
 
 class Net2DSeg(nn.Module):
@@ -91,7 +91,8 @@ class Net2DSeg(nn.Module):
 
     def _stems(self, img: torch.Tensor, depth: torch.Tensor):
         """Both 7x7 stem convolutions as ONE block-diagonal conv over the
-        4-channel concat (the cross blocks are zero), then each stem's BN."""
+        4-channel concat (the cross blocks are zero), then each stem's BN
+        and ReLU on its channel half, read in place."""
         cd = self.compute_dtype
         k = img.new_zeros((128, 4, 7, 7), dtype=cd)
         k[:64, :3] = self.stem_rgb.conv.weight.to(cd)

@@ -4,12 +4,15 @@ Tensors run NCHW in `torch.channels_last` memory, which is NHWC in memory,
 so the stem pool hands the K4 kernel an NHWC-contiguous view.  Convolutions
 run in `compute_dtype`; every BatchNorm computes in fp32 and returns fp32, as
 flax `BatchNorm(dtype=float32)` does, with batch statistics in train mode
-(`nn.Module.train()`).  Dropout after layer3 and layer4 is active in train
-mode and draws from the generator the caller passes.  Module names follow
-the flax tree (`layer1_0.cb1.conv`, ...).  With `frozen_bn` (the RGB stem
-and encoder of `Net2DSeg(frozen_batch_norm=True)`) each BatchNorm takes the
-flax ConvBN's frozen form instead (`frozen_bn`), which returns the conv's
-dtype.
+(`nn.Module.train()`).  In train mode each BatchNorm and the ReLU or residual
+add and ReLU after it are one `ops.kernels.batchnorm2d.BatchNormTrain`, and a
+block's first BatchNorm returns the compute dtype, which the convolution
+after it, its only reader, casts to anyway.  Dropout after layer3 and layer4
+is active in train mode and draws from the generator the caller passes.
+Module names follow the flax tree (`layer1_0.cb1.conv`, ...).  With
+`frozen_bn` (the RGB stem and encoder of `Net2DSeg(frozen_batch_norm=True)`)
+each BatchNorm takes the flax ConvBN's frozen form instead (`frozen_bn`),
+which returns the conv's dtype.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.batchnorm2d import BatchNormTrain
 from ..ops.kernels.maxpool import MaxPool3x3s2
 
 
@@ -30,7 +34,14 @@ class BatchNorm2d(nn.Module):
     loses digits in near-constant channels, such as the depth encoder's over
     a mostly empty depth map, so the port keeps it to stay with the
     reference), and moves the running statistics to 0.9 old + 0.1 batch;
-    eval mode uses the running statistics."""
+    eval mode uses the running statistics.
+
+    `forward(x, relu, identity, out_dtype)` also applies the caller's
+    epilogue: nothing, ReLU(y), or ReLU(y + identity).  In train mode all of
+    it is `BatchNormTrain` (the kernels on a CUDA tensor, the eager ops on
+    a CPU one), which writes `out_dtype`: fp32, or the compute dtype where a
+    convolution, which casts to it anyway, is the only reader.  Eval mode
+    runs the same ops as before and returns fp32."""
 
     momentum = 0.9  # flax's: running = 0.9 old + 0.1 batch
 
@@ -42,19 +53,24 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, training=False, eps=self.eps)
-        mean = x.mean((0, 2, 3))
-        var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
-            self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
-        c = (1, -1, 1, 1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(c)) * mul.view(c) + self.bias.view(c)
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                identity: Optional[torch.Tensor] = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        if self.training:
+            return BatchNormTrain.apply(x, self.weight, self.bias, identity,
+                                        self.running_mean, self.running_var, relu,
+                                        out_dtype, self.eps, self.momentum)
+        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+                         self.weight, self.bias, training=False, eps=self.eps)
+        return epilogue(y, relu, identity)
+
+
+def epilogue(y: torch.Tensor, relu: bool,
+             identity: Optional[torch.Tensor]) -> torch.Tensor:
+    """ReLU(y + identity), ReLU(y) or y, as eager ops."""
+    if identity is not None:
+        y = y + identity
+    return torch.relu(y) if relu else y
 
 
 def add_frozen_bn(module: nn.Module, c: int) -> None:
@@ -112,10 +128,16 @@ class ConvBN(nn.Module):
         else:
             self.bn = BatchNorm2d(cout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                identity: Optional[torch.Tensor] = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """conv, BatchNorm and the epilogue (`BatchNorm2d.forward`); the
+        frozen form returns its conv's dtype, as before."""
         y = conv2d(x, self.conv.weight, None, self.stride, self.padding,
                    self.compute_dtype)
-        return frozen_bn(self, y) if self.frozen else self.bn(y)
+        if self.frozen:
+            return epilogue(frozen_bn(self, y), relu, identity)
+        return self.bn(y, relu, identity, out_dtype)
 
 
 class BasicBlock(nn.Module):
@@ -130,9 +152,11 @@ class BasicBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.cb2(torch.relu(self.cb1(x)))
         identity = x if self.downsample is None else self.downsample(x)
-        return torch.relu(y + identity)
+        # cb1's output feeds cb2's convolution alone, so it may come in the
+        # compute dtype that the convolution casts it to
+        h = self.cb1(x, relu=True, out_dtype=self.cb1.compute_dtype)
+        return self.cb2(h, relu=True, identity=identity)
 
 
 def stem_pool(x: torch.Tensor) -> torch.Tensor:
@@ -144,9 +168,10 @@ def stem_pool(x: torch.Tensor) -> torch.Tensor:
 
 class ResNet34Encoder(nn.Module):
     """5-skip ResNet-34 trunk after the stem (`skip_stem=True` in flax): takes
-    the stem's ConvBN output, returns features at strides 1, 2, 4, 8, 16 with
-    channels 64, 64, 128, 256, 512.  `dropout_rate` is the flax field (0.4):
-    dropout follows layer3 and layer4 in train mode."""
+    the stem's ConvBN output after its ReLU (`StemParams.norm`), returns
+    features at strides 1, 2, 4, 8, 16 with channels 64, 64, 128, 256, 512.
+    `dropout_rate` is the flax field (0.4): dropout follows layer3 and
+    layer4 in train mode."""
 
     def __init__(self, compute_dtype: torch.dtype,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3),
@@ -168,7 +193,6 @@ class ResNet34Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
-        x = torch.relu(x)
         feats = [x]
         x = stem_pool(x)
         for i, names in enumerate(self.block_names):
@@ -194,5 +218,7 @@ class StemParams(nn.Module):
             self.bn = BatchNorm2d(64)
 
     def norm(self, x: torch.Tensor) -> torch.Tensor:
-        """The stem's BatchNorm of its conv output."""
-        return frozen_bn(self, x) if self.frozen else self.bn(x)
+        """The stem's BatchNorm of its conv output and the ReLU after it."""
+        if self.frozen:
+            return torch.relu(frozen_bn(self, x))
+        return self.bn(x, relu=True)

@@ -140,7 +140,8 @@ def register(kernel: Kernel) -> Kernel:
 def all_kernels() -> Dict[str, Kernel]:
     # importing the kernel modules registers them
     from . import (  # noqa: F401
-        bandmm, bandmm_dw, exp_bandmm, exp_gather, head2d, maxpool, propagate, tapsum,
+        bandmm, bandmm_dw, batchnorm2d, exp_bandmm, exp_gather, head2d, maxpool,
+        propagate, tapsum,
     )
 
     return dict(_REGISTRY)

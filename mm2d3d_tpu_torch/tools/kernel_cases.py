@@ -31,6 +31,11 @@ KITTI_SCAN = dict(height=302, width=480, n_points=10240, num_classes=6,
 # only the probe tools launch them, never a path of the system
 PROBE_KERNELS = ("exp_group_gather", "exp_window_copy", "exp_window_gather",
                  "exp_bandmm")
+# train-form BatchNorm2d of one Net2DSeg forward (`ops/kernels/batchnorm2d.py`,
+# four launches each a train step): 36 per ResNet-34 encoder with its stem,
+# 7 in the decoder; `frozen_batch_norm` freezes the RGB stem and encoder's 36
+BN2D_PER_FORWARD = 79
+BN2D_FROZEN = 36
 SLEEP_CYCLES = 100_000_000  # ~50-300 ms of SM clock: longer than the queued calls' dispatch
 
 
@@ -90,26 +95,33 @@ def expected_launches(hier, residual: bool = False) -> dict:
     k1 = tiers(lv[0]) + (2 if residual else 1) * blocks
     k1 += sum(3 if t.cslot_src is not None else 2 for t in hier.transitions)
     return {"propagate": n - 1, "maxpool": 2, "bandmm": k1, "bandmm_dw": 0,
-            "head2d": 0, "tapsum": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
+            "head2d": 0, "tapsum": 0, "batchnorm2d": 0,
+            **dict.fromkeys(PROBE_KERNELS, 0)}
 
 
 def expected_train_launches(hiers, residual: bool = False,
-                            host_built: bool = False) -> dict:
+                            host_built: bool = False, frozen_bn: bool = False) -> dict:
     """Kernel launches of one train step, from the two domains' hierarchies:
     per domain, K1 twice per eval-forward launch (forward and input
     gradient), K2 once per eval-forward K1 launch (weight gradient), K3 per
-    topology (none for topologies built on the host) and K4 per encoder as
-    in the forward (the pool's backward is PyTorch's).  Over child slots
+    topology (none for topologies built on the host), K4 per encoder as
+    in the forward (the pool's backward is PyTorch's) and the BatchNorm
+    kernels four times per train-form BatchNorm2d of the 2D forward (fewer
+    with `frozen_bn`).  Over child slots
     the count holds too: the down conv's two K1 and two K2 calls, the up
     conv's input gradient's two K1 calls."""
     out = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0, "head2d": 0,
-           "tapsum": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
+           "tapsum": 0, "batchnorm2d": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
+    from mm2d3d_tpu_torch.ops.kernels.batchnorm2d import LAUNCHES_PER_CALL
+
+    bn = LAUNCHES_PER_CALL * (BN2D_PER_FORWARD - (BN2D_FROZEN if frozen_bn else 0))
     for hier in hiers:
         ev = expected_launches(hier, residual)
         out["bandmm"] += 2 * ev["bandmm"]
         out["bandmm_dw"] += ev["bandmm"]
         out["propagate"] += 0 if host_built else ev["propagate"]
         out["maxpool"] += ev["maxpool"]
+        out["batchnorm2d"] += bn
     return out
 
 
@@ -345,3 +357,159 @@ def probe_calls(dev):
                 calls.append((f"K10 {taps} E={e_build} {voxels} voxels",
                               lambda e=e_build, n=voxels, a=args: band_apply(*a, e, n)))
     return calls
+
+
+# The train-form BatchNorm's call forms: name -> (the conv output's shape
+# (N, C, H, W), the channels this BatchNorm normalises, epilogue
+# ("none", "relu", "residual": + identity and ReLU), x's dtype, y's dtype).
+# The flagship's at its train batch, 16 per domain (240 x 400 padded
+# images), and the KITTI configs' stem on 480 x 304 padded crops; a stem's
+# x is one half of the fused stems' 128-channel output, read in place.
+BN_TRAIN_BATCH = 16
+BN_CASES = {
+    "flagship stem rgb (16, 64, 240, 400) of 128": ((16, 128, 240, 400), (0, 64), "relu",
+                                                    torch.bfloat16, torch.float32),
+    "flagship stem depth (16, 64, 240, 400) of 128": ((16, 128, 240, 400), (64, 128),
+                                                      "relu", torch.bfloat16, torch.float32),
+    "flagship up2 (16, 64, 240, 400)": ((16, 64, 240, 400), (0, 64), "relu",
+                                        torch.bfloat16, torch.float32),
+    "flagship layer1 cb1 (16, 64, 120, 200)": ((16, 64, 120, 200), (0, 64), "relu",
+                                               torch.bfloat16, torch.bfloat16),
+    "flagship layer1 cb2 (16, 64, 120, 200)": ((16, 64, 120, 200), (0, 64), "residual",
+                                               torch.bfloat16, torch.float32),
+    "flagship layer4 downsample (16, 512, 15, 25)": ((16, 512, 15, 25), (0, 512), "none",
+                                                     torch.bfloat16, torch.float32),
+    "flagship layer4 cb2 (16, 512, 15, 25)": ((16, 512, 15, 25), (0, 512), "residual",
+                                              torch.bfloat16, torch.float32),
+    "flagship layer4 cb1 (16, 512, 15, 25)": ((16, 512, 15, 25), (0, 512), "relu",
+                                              torch.bfloat16, torch.bfloat16),
+    "KITTI stem rgb (16, 64, 304, 480) of 128": ((16, 128, 304, 480), (0, 64), "relu",
+                                                 torch.bfloat16, torch.float32),
+    "KITTI layer1 cb2 (16, 64, 152, 240)": ((16, 64, 152, 240), (0, 64), "residual",
+                                            torch.bfloat16, torch.float32),
+    "fp32 flagship layer1 cb2 (16, 64, 120, 200)": ((16, 64, 120, 200), (0, 64),
+                                                    "residual", torch.float32,
+                                                    torch.float32),
+}
+
+
+def bn_inputs(case, dev, seed: int = 0):
+    """The inputs of one BatchNorm call form (a `BN_CASES` value): x (a
+    channels_last view, a channel slice for the stems), weight, bias,
+    identity (fp32, or None), running mean and variance, the output
+    gradient dy in y's dtype; channel means and scales spread as a conv's
+    output spreads them."""
+    shape, (lo, hi), epi, x_dtype, y_dtype = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, c_all, h, w = shape
+    c = hi - lo
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    base = (rnd(n, c_all, h, w) * (0.5 + rnd(1, c_all, 1, 1).abs()) + rnd(1, c_all, 1, 1))
+    x = base.to(x_dtype).contiguous(memory_format=torch.channels_last)[:, lo:hi]
+    del base
+    ident = (rnd(n, c, h, w).contiguous(memory_format=torch.channels_last)
+             if epi == "residual" else None)
+    dy = rnd(n, c, h, w).to(y_dtype).contiguous(memory_format=torch.channels_last)
+    return (x, 1 + 0.1 * rnd(c), 0.1 * rnd(c), ident, 0.1 * rnd(c), 1 + rnd(c).abs(), dy)
+
+
+def bn_passes(inputs, epi: str, y_dtype, plain: bool = False, bits=None) -> dict:
+    """The four passes of one train-form BatchNorm, forward then backward,
+    without autograd: the kernels' wrappers or, with `plain`, the plain
+    versions, on the inputs' device; the plain backward takes the kernels'
+    ReLU `bits` where given.  The running statistics of `inputs` move in
+    place.  Returns y, dx, dweight, dbias, didentity (or None) and the mask."""
+    from mm2d3d_tpu_torch.ops.kernels import batchnorm2d as B
+
+    x, weight, bias, ident, rm, rv, dy = inputs
+    fns = ((B.stats_ref, B.apply_ref, B.grad_sums_ref, B.grad_apply_ref) if plain
+           else (B.bn_stats, B.bn_apply, B.bn_grad_sums, B.bn_grad_apply))
+    stats = fns[0](x, weight, rm, rv, 1e-5, 0.9)
+    y, mask = fns[1](x, stats, bias, ident, epi != "none", y_dtype)
+    used = mask if bits is None else B.unpack_mask(bits, x.shape)
+    coef = fns[2](dy, x, used, stats, weight)
+    dx, did = fns[3](dy, x, used, stats, coef, ident is not None)
+    return {"y": y, "dx": dx, "dweight": coef[0], "dbias": coef[1], "didentity": did,
+            "mask": mask}
+
+
+def bn_run(inputs, epi: str, y_dtype) -> dict:
+    """One train-form BatchNorm, forward and backward, through
+    `BatchNormTrain` and autograd, from fresh copies of the running
+    statistics: `bn_passes`'s outputs but the mask, and the moved running
+    statistics."""
+    from mm2d3d_tpu_torch.ops.kernels.batchnorm2d import BatchNormTrain
+
+    x, weight, bias, ident, rm, rv, dy = inputs
+    rm, rv = rm.clone(), rv.clone()
+    xg = x.detach().requires_grad_(True)
+    wg = weight.clone().requires_grad_(True)
+    bg = bias.clone().requires_grad_(True)
+    ig = None if ident is None else ident.clone().requires_grad_(True)
+    y = BatchNormTrain.apply(xg, wg, bg, ig, rm, rv, epi != "none", y_dtype, 1e-5, 0.9)
+    y.backward(dy)
+    return {"y": y.detach(), "dx": xg.grad, "dweight": wg.grad, "dbias": bg.grad,
+            "didentity": None if ig is None else ig.grad, "running_mean": rm,
+            "running_var": rv}
+
+
+def bn_check(inputs, epi: str, y_dtype) -> dict:
+    """The kernels of one BatchNorm call form against the plain versions on
+    the same device.  Raises unless two calls through `BatchNormTrain` give
+    the same bits, the Function gives its four passes' bits, and the ReLU
+    bits agree with the plain mask wherever the plain pre-ReLU value lies
+    beyond 1e-4 * its max (nearer 0 the two roundings may tip it; the
+    plain backward then takes the kernels' bits).  Returns each output's
+    error as a share of its tolerance (`bn_errors`)."""
+    from mm2d3d_tpu_torch.ops.kernels import batchnorm2d as B
+
+    x, weight, bias, ident, rm, rv, dy = inputs
+    run, again = bn_run(inputs, epi, y_dtype), bn_run(inputs, epi, y_dtype)
+    for k, v in run.items():
+        if v is not None and not torch.equal(v, again[k]):
+            raise AssertionError(f"two calls differ in {k}")
+    fresh = lambda: (x, weight, bias, ident, rm.clone(), rv.clone(), dy)  # noqa: E731
+    out = bn_passes(fresh(), epi, y_dtype)
+    for k, v in out.items():
+        if k != "mask" and v is not None and not torch.equal(v, run[k]):
+            raise AssertionError(f"BatchNormTrain and its passes differ in {k}")
+    plain_in = fresh()
+    ref = bn_passes(plain_in, epi, y_dtype, plain=True, bits=out["mask"])
+    if epi != "none":
+        stats = B.stats_ref(x, weight, rm.clone(), rv.clone(), 1e-5, 0.9)
+        pre = B.apply_ref(x, stats, bias, ident, False, torch.float32)[0]
+        flip = B.unpack_mask(out["mask"], x.shape) != ref["mask"]
+        if bool((pre.abs() > 1e-4 * float(pre.abs().max()))[flip].any()):
+            raise AssertionError("ReLU bits differ beyond the rounding band")
+    ref = {**{k: v for k, v in ref.items() if k != "mask"},
+           "running_mean": plain_in[4], "running_var": plain_in[5]}
+    return bn_errors(run, ref)
+
+
+def bn_bytes(case) -> int:
+    """The bytes one BatchNorm call form moves, each once, forward and
+    backward: x read twice in each direction, y and dx written, dy read
+    twice, the ReLU bits written once and read twice, the identity read and
+    its gradient written after a residual."""
+    shape, (lo, hi), epi, x_dtype, y_dtype = case
+    n = shape[0] * shape[2] * shape[3] * (hi - lo)
+    xs, ys = torch.finfo(x_dtype).bits // 8, torch.finfo(y_dtype).bits // 8
+    bits = n / 8 if epi != "none" else 0
+    ident = 4 * n if epi == "residual" else 0
+    fwd = 2 * n * xs + n * ys + bits + ident
+    bwd = 2 * n * ys + 3 * n * xs + 2 * bits + ident
+    return int(fwd + bwd)
+
+
+def bn_errors(out: dict, ref: dict) -> dict:
+    """Each output's max|kernel - plain| over max|plain|, as a share of its
+    tolerance: 1e-4 for fp32 outputs (the sums in another order, the
+    statistics finished in fp64, y by one fma), 2^-7 for bf16 outputs (one
+    bf16 rounding step of values that differ in fp32 before it)."""
+    return {k: float((out[k].float() - r.float()).abs().max())
+            / max(float(r.float().abs().max()), 1e-30)
+            / (2.0 ** -7 if r.dtype == torch.bfloat16 else 1e-4)
+            for k, r in ref.items() if r is not None}

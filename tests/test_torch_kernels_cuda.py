@@ -7,8 +7,11 @@ slot profile's level-0 tiers) and K4 (their stem outputs); the autograd Function
 dense form's and the strided convs' child-slot form (K = 8) included, the
 stem pool's and the fused head's backward) on
 the card against the same Functions on the CPU; the 2D branch's
-train-mode gradients on the card against the CPU's; and host-built
-topologies copied to the card against the card's own build.
+train-mode gradients on the card against the CPU's; host-built
+topologies copied to the card against the card's own build; and the
+train-form BatchNorm kernels against their plain versions at the
+flagship's and KITTI's BatchNorm shapes and at edges, with their launch
+count per BatchNorm and per 2D train step.
 
 Needs a CUDA device (and nvcc to build the kernels); skips without one.  On
 a machine with a card and no JAX, run it without the repo's conftest.py
@@ -19,7 +22,9 @@ a machine with a card and no JAX, run it without the repo's conftest.py
 K3 and K4 must be bit-identical to their plain versions; K1, K2, K5 and K6
 within 1e-4 * max|plain| (fp32 sums in another order), K1, K2 and K6
 bit-identical between two calls; the adjoints' gradients within 1e-4 * max|CPU| and the
-2D branch's within 1e-3 of its largest CPU gradient (TF32 off).
+2D branch's within 1e-3 of its largest CPU gradient (TF32 off); the
+BatchNorm kernels' outputs within 1e-4 * max|plain| in fp32 and 2^-7 *
+max|plain| in bf16 (one rounding step), and bit-identical between two calls.
 """
 
 import dataclasses
@@ -749,3 +754,132 @@ def test_band_apply_kernel_other_shapes(dev, h, ci, co, v):
     the centre alone."""
     r = np.random.RandomState(h * 1000 + v)
     _band_holds(*_band_case(r, dev, v, h, ci, co, taps="probe"))
+
+
+# --------------------------------------------------------------------------
+# the train-form BatchNorm kernels (ops/kernels/batchnorm2d.py)
+# --------------------------------------------------------------------------
+
+BN_EDGES = {
+    # name: ((N, C, H, W) of the conv output, channel slice, epilogue, x, y dtypes)
+    "ragged_rows": ((3, 64, 7, 11), (0, 64), "residual", torch.bfloat16, torch.float32),
+    "one_pixel_per_image": ((5, 64, 1, 1), (0, 64), "relu", torch.bfloat16, torch.bfloat16),
+    "c192_partial_tile": ((2, 192, 9, 13), (0, 192), "relu", torch.float32, torch.float32),
+    "c8": ((4, 8, 5, 6), (0, 8), "none", torch.bfloat16, torch.float32),
+    "slice_of_wider_rows": ((2, 128, 10, 12), (64, 128), "none", torch.float32, torch.float32),
+    "rows_of_many_blocks": ((7, 256, 61, 67), (0, 256), "residual", torch.bfloat16,
+                            torch.float32),
+}
+
+
+def _bn_case(name):
+    from mm2d3d_tpu_torch.tools.kernel_cases import BN_CASES
+
+    return BN_EDGES[name] if name in BN_EDGES else BN_CASES[name]
+
+
+def _bn_case_names():
+    from mm2d3d_tpu_torch.tools.kernel_cases import BN_CASES
+
+    return sorted(BN_CASES) + sorted(BN_EDGES)
+
+
+@pytest.mark.parametrize("name", _bn_case_names())
+def test_batchnorm2d_matches_plain_version_and_repeats(dev, name):
+    """Forward and backward at the flagship's and KITTI's BatchNorm shapes
+    and at edges, against the plain versions on the card
+    (`kernel_cases.bn_check`): each output within its tolerance, 1e-4 *
+    max|plain| in fp32 (the sums in another order and finished in fp64, y
+    by one fma) and 2^-7 * max|plain| in bf16 (one rounding step of values
+    that differ before it), the running statistics within 1e-4; the ReLU
+    bits as the plain mask wherever the pre-ReLU value lies beyond the
+    rounding band; two calls bit-identical (no float atomics); four
+    launches per BatchNorm."""
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.tools.kernel_cases import bn_check, bn_inputs, bn_run
+
+    case = _bn_case(name)
+    epi, y_dtype = case[2], case[4]
+    inputs = bn_inputs(case, dev, seed=11)
+    kernels.reset_counts()
+    bn_run(inputs, epi, y_dtype)
+    torch.cuda.synchronize()
+    assert kernels.counts()["batchnorm2d"] == 4
+    errs = bn_check(inputs, epi, y_dtype)
+    assert max(errs.values()) <= 1.0, errs
+
+
+def test_batchnorm2d_constant_channel(dev):
+    """A channel of one value: variance 0 (or a rounding below it, clipped),
+    y = bias there, and the gradients finite and within tolerance of the
+    plain version's."""
+    from mm2d3d_tpu_torch.tools.kernel_cases import bn_check, bn_inputs, bn_run
+
+    case = ((4, 64, 9, 10), (0, 64), "relu", torch.bfloat16, torch.float32)
+    x, *rest = bn_inputs(case, dev, seed=12)
+    x = x.clone(memory_format=torch.channels_last)
+    x[:, 5] = 2.375
+    inputs = (x, *rest)
+    out = bn_run(inputs, "relu", torch.float32)
+    assert all(torch.isfinite(v).all() for v in out.values() if v is not None)
+    assert torch.equal(out["y"][:, 5], torch.relu(rest[1][5]).expand_as(out["y"][:, 5]))
+    errs = bn_check(inputs, "relu", torch.float32)
+    assert max(errs.values()) <= 1.0, errs
+
+
+def test_batchnorm2d_refuses_what_it_cannot_take(dev):
+    from mm2d3d_tpu_torch.ops.kernels import batchnorm2d as B
+
+    w = torch.ones(64, device=dev)
+    rm, rv = torch.zeros(64, device=dev), torch.ones(64, device=dev)
+    nchw = torch.randn((2, 64, 5, 6), device=dev).to(torch.bfloat16)  # not NHWC
+    with pytest.raises(ValueError, match="channels_last"):
+        B.bn_stats(nchw, w, rm, rv, 1e-5, 0.9)
+    nhwc = nchw.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="channels_last"):
+        B.bn_stats(nhwc.transpose(2, 3), w, rm, rv, 1e-5, 0.9)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        B.bn_stats(nhwc[:, :60], w[:60], rm[:60], rv[:60], 1e-5, 0.9)
+    with pytest.raises(TypeError):
+        B.bn_stats(nhwc.half(), w, rm, rv, 1e-5, 0.9)
+    wide = torch.zeros((2, 72, 5, 6), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):  # 8 bytes past an alignment
+        B.bn_stats(wide.contiguous(memory_format=torch.channels_last)[:, 4:68], w, rm,
+                   rv, 1e-5, 0.9)
+    stats = B.bn_stats(nhwc, w, rm, rv, 1e-5, 0.9)
+    with pytest.raises(TypeError, match="output dtype"):
+        B.bn_apply(nhwc.float(), stats, w, None, True, torch.bfloat16)
+    with pytest.raises(ValueError, match="identity"):
+        B.bn_apply(nhwc, stats, w, nhwc, True, torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        B.bn_stats(nhwc.float().requires_grad_(True), w, rm, rv, 1e-5, 0.9)
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_net2dseg_train_step_launches_batchnorm_kernels(dev, frozen):
+    """Every train-mode BatchNorm2d of the 2D branch goes through the
+    kernels: four launches each per forward and backward
+    (`kernel_cases.expected_train_launches`), 79 BatchNorms, 43 with the RGB
+    stem and encoder frozen; the eval forward launches none."""
+    from mm2d3d_tpu_torch.models.net2d import Net2DSeg
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.tools.kernel_cases import BN2D_FROZEN, BN2D_PER_FORWARD
+
+    net = Net2DSeg(6, frozen_batch_norm=frozen).to(dev, memory_format=torch.channels_last)
+    g = torch.Generator(device=dev).manual_seed(13)
+    img = torch.rand((2, 45, 60, 3), generator=g, device=dev)
+    depth = torch.rand((2, 45, 60, 1), generator=g, device=dev)
+    idx = torch.zeros((2, 16, 2), dtype=torch.int32, device=dev)
+    mask = torch.ones((2, 16), dtype=torch.bool, device=dev)
+    kernels.reset_counts()
+    net.train()
+    preds, _, aux = net(img, depth, idx, mask, generator=g, with_features=False)
+    (preds["seg_logit_2d"].square().mean() + aux["seg_logit_avg_2d"].mean()).backward()
+    torch.cuda.synchronize()
+    n_bn = BN2D_PER_FORWARD - (BN2D_FROZEN if frozen else 0)
+    assert kernels.counts()["batchnorm2d"] == 4 * n_bn
+    kernels.reset_counts()
+    net.eval()
+    with torch.no_grad():
+        net(img, depth, idx, mask, with_features=False)
+    assert kernels.counts()["batchnorm2d"] == 0

@@ -99,7 +99,8 @@ def test_port_imports_without_jax():
         "import mm2d3d_tpu_torch.tools.bench_e2e\n"
         "import mm2d3d_tpu_torch.tools.profile_topology\n"
         "from mm2d3d_tpu_torch.ops import kernels\n"
-        "assert sorted(kernels.all_kernels()) == ['bandmm', 'bandmm_dw', 'exp_bandmm', "
+        "assert sorted(kernels.all_kernels()) == ['bandmm', 'bandmm_dw', 'batchnorm2d', "
+        "'exp_bandmm', "
         "'exp_group_gather', 'exp_window_copy', 'exp_window_gather', 'head2d', "
         "'maxpool', 'propagate', 'tapsum']\n"
     )
