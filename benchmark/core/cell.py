@@ -23,7 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from reference import nets
+from reference import arch3d, nets
 from reference.quant import PRECISIONS
 from reference.task import Reference
 from reference.voxels import voxelize
@@ -35,11 +35,16 @@ from .weights import make_weights
 
 
 def templates(config: Dict) -> Dict:
-    b3 = config["models"]["net3d"]["backbone_3d"]
-    nc = config["num_classes"]
-    return {"2d": nets.template2d(nc),
-            "3d": nets.template3d(nc, b3["m"], b3["num_planes"], b3.get("block_reps", 1),
-                                  b3.get("in_channels", 3))}
+    """{"2d", "3d"}: {name: shape} of each branch; the 3D network's from its
+    module of `reference.arch3d`."""
+    return {"2d": nets.template2d(config["num_classes"]),
+            "3d": arch3d.lookup(config).template(config)}
+
+
+def seeded_weights(config: Dict, seed: int, device) -> Dict:
+    """Both branches' weights of the run with `seed`."""
+    return make_weights(templates(config), G.derive(seed, G.WEIGHTS), device,
+                        fan_in={"3d": getattr(arch3d.lookup(config), "fan_in", None)})
 
 
 def _sync(device: torch.device) -> None:
@@ -84,6 +89,7 @@ class Run:
 
     def setup(self) -> None:
         dev = self.device
+        self.net3d = arch3d.lookup(self.config)  # an unknown 3D network fails here
         phases = self.rec["setup_phases"] = {}
         t = time.perf_counter()
 
@@ -97,7 +103,7 @@ class Run:
         if dev.type == "cuda":
             program.build_kernels()
         phase("kernels")
-        weights = make_weights(templates(self.config), G.derive(self.seed, G.WEIGHTS), dev)
+        weights = seeded_weights(self.config, self.seed, dev)
         self.task = program.build_task(self.config, weights, dev)
         del weights
         phase("task")
@@ -217,7 +223,7 @@ class Run:
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         first = len(self.pool_index)
-        with layer_ranges(program.layer_modules(self.task)):
+        with layer_ranges(program.layer_modules(self.task, self.net3d.SPCONV_MODULES)):
             spans: List[float] = []
             undo = topology_spans(self.task, spans)
             with profile(activities=acts) as prof:
@@ -262,8 +268,7 @@ class Run:
     def reference(self, precision: str = "fp32") -> Reference:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        weights = make_weights(templates(self.config), G.derive(self.seed, G.WEIGHTS),
-                               self.device)
+        weights = seeded_weights(self.config, self.seed, self.device)
         return Reference(self.config, weights, self.device, PRECISIONS[precision])
 
     def reference_record(self, precision: str = "fp32", half: bool = False):
@@ -294,9 +299,7 @@ class Run:
             mask = torch.as_tensor(batch["point_mask"]).to(self.device)
             vox = voxelize(torch.as_tensor(batch["coords"]).to(self.device), mask,
                            b3["full_scale"], b3["num_planes"])
-            return work.batch_work([lv.num_voxels for lv in vox.levels],
-                                   [lv.num_pairs() for lv in vox.levels],
-                                   int(mask.sum()), self.config, geo,
+            return work.batch_work(vox, int(mask.sum()), self.config, geo,
                                    self.mix["batch_size"], train)
 
         out = []

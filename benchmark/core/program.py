@@ -10,7 +10,8 @@ the card by `prepare_device_batch`).
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import importlib
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,15 +67,20 @@ def overflow(logs: Dict[str, torch.Tensor]) -> torch.Tensor:
     return sum(logs[k].float() for k in keys if k in logs)
 
 
-def spconv_modules(task) -> List[torch.nn.Module]:
-    from mm2d3d_tpu_torch.models.sparse_unet import DownConv, SubmConv, UpConv
+def spconv_modules(task, classes: Sequence[str]) -> List[torch.nn.Module]:
+    """The 3D network's modules of the `classes` (dotted names of the
+    program's classes, as the network's `reference.arch3d` module lists
+    them), in the network's order."""
+    types = []
+    for dotted in classes:
+        module, _, name = dotted.rpartition(".")
+        types.append(getattr(importlib.import_module(module), name))
+    return [m for m in task.model3d.modules() if isinstance(m, tuple(types))]
 
-    return [m for m in task.model3d.modules() if isinstance(m, (SubmConv, DownConv, UpConv))]
 
-
-def layer_modules(task) -> List[Tuple[torch.nn.Module, str]]:
+def layer_modules(task, spconv_classes: Sequence[str]) -> List[Tuple[torch.nn.Module, str]]:
     return ([(task.model2d, "net2d"), (task.model3d, "net3d")]
-            + [(m, "spconv") for m in spconv_modules(task)])
+            + [(m, "spconv") for m in spconv_modules(task, spconv_classes)])
 
 
 def eval_metrics(task):

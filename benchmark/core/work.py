@@ -8,7 +8,10 @@ layers: a dense convolution 2 Ci Co kh kw per output pixel (a transposed
 2x2 stride-2 one 2 Ci Co per output pixel), a sparse convolution 2 Ci Co
 per (output, input) pair its rulebook holds, a linear layer 2 Ci Co per
 row; normalisations, activations, pooling and losses are not counted.  A
-training step is counted as three forwards.
+training step is counted as three forwards.  The 2D network's count is
+here; a 3D network's list of sparse convolutions and its other products
+come from its own module of `reference.arch3d`, found by the
+configuration's `models.net3d.name`.
 
 A sparse convolution's least time is summed over its passes (the forward;
 in training also the input and the weight gradient), each the larger of its
@@ -21,6 +24,8 @@ the count is the same whatever implements the convolution.
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
+
+from reference import arch3d
 
 PEAK_FLOPS = 989e12  # bf16 dense
 HBM_BYTES_PER_S = 3.35e12
@@ -64,27 +69,9 @@ def net2d_flops(height: int, width: int, num_classes: int) -> int:
     return f
 
 
-# one sparse convolution: (pairs, rows in, rows out, Cin, Cout, taps)
+# one sparse convolution: (pairs, rows in, rows out, Cin, Cout, taps), as a
+# 3D network's `convs` lists them
 SpConv = Tuple[int, int, int, int, int, int]
-
-
-def spconvs(level_voxels: List[int], level_pairs: List[int], m: int,
-            reps: int, in_channels: int) -> List[SpConv]:
-    """Every sparse convolution of one 3D forward, from the voxel and pair
-    counts of each level."""
-    n = len(level_voxels)
-    planes = [(i + 1) * m for i in range(n)]
-    v, p = level_voxels, level_pairs
-    convs = [(p[0], v[0], v[0], in_channels, m, 27)]
-    for l in range(n):
-        if l > 0:
-            convs.append((v[l - 1], v[l - 1], v[l], planes[l - 1], planes[l], 8))
-        convs += [(p[l], v[l], v[l], planes[l], planes[l], 27)] * reps
-    for l in range(n - 2, -1, -1):
-        convs.append((v[l], v[l + 1], v[l], planes[l + 1], planes[l], 8))
-        convs.append((p[l], v[l], v[l], 2 * planes[l], planes[l], 27))
-        convs += [(p[l], v[l], v[l], planes[l], planes[l], 27)] * (reps - 1)
-    return convs
 
 
 def spconv_flops(convs: List[SpConv]) -> int:
@@ -108,25 +95,17 @@ def spconv_least_s(convs: List[SpConv], train: bool) -> float:
     return total
 
 
-def net3d_flops(convs: List[SpConv], points: int, m: int, num_classes: int,
-                in_channels: int) -> int:
-    """Forward FLOPs of one batch through the 3D network: the sparse
-    convolutions, the gate and the two heads over every point."""
-    return (spconv_flops(convs) + 2 * points * in_channels
-            + 2 * 2 * points * m * num_classes)
-
-
-def batch_work(level_voxels, level_pairs, points: int, config: Dict,
-               geometry: Dict, batch_size: int, train: bool) -> Dict[str, float]:
+def batch_work(vox, points: int, config: Dict, geometry: Dict, batch_size: int,
+               train: bool) -> Dict[str, float]:
     """{"flops": model FLOPs of one call (a train step counts both domains'
     batches here once; the caller multiplies), "spconv_least_s": the least
-    seconds of its sparse convolutions} for one batch."""
-    b3 = config["models"]["net3d"]["backbone_3d"]
-    nc = config["num_classes"]
-    convs = spconvs(level_voxels, level_pairs, b3["m"], b3.get("block_reps", 1),
-                    b3.get("in_channels", 3))
+    seconds of its sparse convolutions} for one batch of `points` valid
+    points, voxelised as `vox` (`reference.voxels.Voxels`)."""
+    arch = arch3d.lookup(config)
+    convs = arch.convs(vox, config)
     return {
-        "flops": (batch_size * net2d_flops(geometry["height"], geometry["width"], nc)
-                  + net3d_flops(convs, points, b3["m"], nc, b3.get("in_channels", 3))),
+        "flops": (batch_size * net2d_flops(geometry["height"], geometry["width"],
+                                           config["num_classes"])
+                  + spconv_flops(convs) + arch.dense_flops(vox, points, config)),
         "spconv_least_s": spconv_least_s(convs, train),
     }

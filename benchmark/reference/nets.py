@@ -1,4 +1,5 @@
-"""The two networks of the MM2D3D task, as plain functions of a weight dict.
+"""The 2D network of the MM2D3D task, and the pieces every 3D network
+shares, as plain functions of a weight dict.
 
 2D: two ResNet-34 encoders (RGB and sparse depth; 7x7 stride-1 stems, a
 3x3 stride-2 max pool, stages of 3, 4, 6, 3 basic blocks, dropout 0.4 after
@@ -7,19 +8,19 @@ transposed convolutions and 3x3 fusions over [depth skip, up, RGB skip], a
 3x3 convolution to 64 channels, cropped to the image, a 5x5 average pool
 (zero padding counted), and two 1x1 heads (segmentation and the auxiliary
 cross-modal head); point logits are gathered at each point's pixel.
+BatchNorms normalise with the batch's biased statistics in training and
+with the running statistics in eval mode.  Weight names are those of the
+published layout (`template2d`), so one weight dict serves the reference
+and the program.
 
-3D: a sigmoid gate on the RGB point features, mean pooling into level-0
-voxels, a submanifold 3x3x3 input convolution, a sparse U-Net of
-pre-activation blocks (BatchNorm, ReLU, submanifold convolution) over
-`num_planes` levels of m, 2m, ... channels joined by stride-2 convolutions,
-a last BatchNorm and ReLU, the voxel features scattered back to the points,
-and two linear heads.
-
-BatchNorms normalise with the batch's biased statistics in training (the 3D
-ones over the active voxels) and with the running statistics in eval mode.
-Weight names are those of the published layout (`template2d`,
-`template3d`), so one weight dict serves the reference and the program.
-`q` is the operand precision of every product (`quant`).
+3D: each network's layout, forward and work count live in its own module
+of `arch3d`, found by the configuration's `models.net3d.name`.  Here are
+what they share: the submanifold, stride-2 and transposed sparse
+convolutions over the reference's voxelisation, and the program's
+`Net3DSeg` wrapper around a trunk (a sigmoid gate on the RGB point
+features and mean pooling into level-0 voxels, `pool_points`; the voxel
+features scattered back to the points and two linear heads,
+`point_heads`).  `q` is the operand precision of every product (`quant`).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ STAGES = ((3, 64), (4, 128), (6, 256), (3, 512))
 DROPOUT = 0.4
 
 
-def _bn_names(prefix: str, c: int) -> Dict[str, Tuple[int, ...]]:
+def bn_names(prefix: str, c: int) -> Dict[str, Tuple[int, ...]]:
     return {f"{prefix}.{k}": (c,) for k in
             ("weight", "bias", "running_mean", "running_var")}
 
@@ -46,7 +47,7 @@ def template2d(num_classes: int) -> Dict[str, Tuple[int, ...]]:
     t = {}
     for stem, cin in (("stem_rgb", 3), ("stem_depth", 1)):
         t[f"{stem}.conv.weight"] = (64, cin, 7, 7)
-        t.update(_bn_names(f"{stem}.bn", 64))
+        t.update(bn_names(f"{stem}.bn", 64))
     for enc in ("rgb_backbone", "depth_backbone"):
         cin = 64
         for i, (blocks, width) in enumerate(STAGES):
@@ -54,54 +55,26 @@ def template2d(num_classes: int) -> Dict[str, Tuple[int, ...]]:
                 n = f"{enc}.layer{i + 1}_{b}"
                 stride = 2 if (b == 0 and i > 0) else 1
                 t[f"{n}.cb1.conv.weight"] = (width, cin, 3, 3)
-                t.update(_bn_names(f"{n}.cb1.bn", width))
+                t.update(bn_names(f"{n}.cb1.bn", width))
                 t[f"{n}.cb2.conv.weight"] = (width, width, 3, 3)
-                t.update(_bn_names(f"{n}.cb2.bn", width))
+                t.update(bn_names(f"{n}.cb2.bn", width))
                 if stride != 1 or cin != width:
                     t[f"{n}.downsample.conv.weight"] = (width, cin, 1, 1)
-                    t.update(_bn_names(f"{n}.downsample.bn", width))
+                    t.update(bn_names(f"{n}.downsample.bn", width))
                 cin = width
     for up, cin, cout in (("up5", 1024, 256), ("up4", 256, 128),
                           ("up3", 128, 64), ("up2", 64, 64)):
         t[f"{up}.tconv.weight"] = (cin, cout, 2, 2)
         t[f"{up}.tconv.bias"] = (cout,)
-        t.update(_bn_names(f"{up}.bn", cout))
+        t.update(bn_names(f"{up}.bn", cout))
     for fuse, c in (("fuse4", 256), ("fuse3", 128), ("fuse2", 64)):
         t[f"{fuse}.conv.weight"] = (c, 3 * c, 3, 3)
         t[f"{fuse}.conv.bias"] = (c,)
-        t.update(_bn_names(f"{fuse}.bn", c))
+        t.update(bn_names(f"{fuse}.bn", c))
     t["dec_conv_stage1.weight"] = (64, 192, 3, 3)
     t["dec_conv_stage1.bias"] = (64,)
     for head in ("head_conv", "aux_conv"):
         t[f"{head}.weight"] = (num_classes, 64, 1, 1)
-        t[f"{head}.bias"] = (num_classes,)
-    return t
-
-
-def template3d(num_classes: int, m: int, num_planes: int, reps: int,
-               in_channels: int) -> Dict[str, Tuple[int, ...]]:
-    """Name -> shape of every 3D weight and running statistic."""
-    planes = [(i + 1) * m for i in range(num_planes)]
-    t = {"linear_rgb_mask.weight": (1, in_channels), "linear_rgb_mask.bias": (1,),
-         "net_3d.input_conv.weight": (27, in_channels, m)}
-    u = "net_3d.unet"
-    for l in range(num_planes):
-        if l > 0:
-            t.update(_bn_names(f"{u}.down_bn_{l}", planes[l - 1]))
-            t[f"{u}.down_{l}.weight"] = (8, planes[l - 1], planes[l])
-        for r in range(reps):
-            t.update(_bn_names(f"{u}.enc_{l}_{r}.bn", planes[l]))
-            t[f"{u}.enc_{l}_{r}.conv.weight"] = (27, planes[l], planes[l])
-    for l in range(num_planes - 2, -1, -1):
-        t.update(_bn_names(f"{u}.up_bn_{l}", planes[l + 1]))
-        t[f"{u}.up_{l}.weight"] = (8, planes[l + 1], planes[l])
-        for r in range(reps):
-            cin = 2 * planes[l] if r == 0 else planes[l]
-            t.update(_bn_names(f"{u}.dec_{l}_{r}.bn", cin))
-            t[f"{u}.dec_{l}_{r}.conv.weight"] = (27, cin, planes[l])
-    t.update(_bn_names("net_3d.out_bn", m))
-    for head in ("linear", "aux_linear_point"):
-        t[f"{head}.weight"] = (num_classes, m)
         t[f"{head}.bias"] = (num_classes,)
     return t
 
@@ -215,17 +188,8 @@ def net2d(W: Dict[str, torch.Tensor], img: torch.Tensor, depth: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# 3D
+# 3D building blocks
 # ---------------------------------------------------------------------------
-
-def _bn3d(x, W, name, train):
-    if train:
-        mean = x.mean(0)
-        var = (x - mean).square().mean(0)
-    else:
-        mean, var = W[f"{name}.running_mean"], W[f"{name}.running_var"]
-    return (x - mean) * torch.rsqrt(var + 1e-4) * W[f"{name}.weight"] + W[f"{name}.bias"]
-
 
 def subm_conv(x: torch.Tensor, level: Level, w: torch.Tensor, q: Q) -> torch.Tensor:
     """out[v] = sum over taps k of x[v + offset_k] @ w[k]."""
@@ -258,35 +222,26 @@ def up_conv(x: torch.Tensor, tr: Transition, w: torch.Tensor, q: Q) -> torch.Ten
     return out
 
 
-def net3d(W: Dict[str, torch.Tensor], feats: torch.Tensor, vox: Voxels,
-          num_planes: int, reps: int, train: bool, q: Q) -> Dict[str, torch.Tensor]:
-    """feats (P, C) fp32 point features -> {"seg_logit", "seg_logit_point"}:
-    (P, nc) logits of the main and the auxiliary head."""
+def pool_points(W: Dict[str, torch.Tensor], feats: torch.Tensor,
+                vox: Voxels) -> torch.Tensor:
+    """The program's `Net3DSeg` input: feats (P, C) fp32 point features
+    gated by the sigmoid of `linear_rgb_mask`, mean-pooled into the
+    level-0 voxels -> (V0, C)."""
     gate = torch.sigmoid(feats @ W["linear_rgb_mask.weight"].T + W["linear_rgb_mask.bias"])
     gated = feats * gate
     ok = vox.point_voxel >= 0
     v0 = vox.levels[0].num_voxels
-    pooled = gated.new_zeros(v0, gated.shape[1]).index_add(
+    return gated.new_zeros(v0, gated.shape[1]).index_add(
         0, vox.point_voxel[ok], gated[ok]) / vox.counts.clamp(min=1)[:, None].to(gated.dtype)
-    u = "net_3d.unet"
-    x = subm_conv(pooled, vox.levels[0], W["net_3d.input_conv.weight"], q)
-    enc = []
-    for l in range(num_planes):
-        if l > 0:
-            y = torch.relu(_bn3d(x, W, f"{u}.down_bn_{l}", train))
-            x = down_conv(y, vox.transitions[l - 1], vox.levels[l].num_voxels,
-                          W[f"{u}.down_{l}.weight"], q)
-        for r in range(reps):
-            x = subm_conv(torch.relu(_bn3d(x, W, f"{u}.enc_{l}_{r}.bn", train)),
-                          vox.levels[l], W[f"{u}.enc_{l}_{r}.conv.weight"], q)
-        enc.append(x)
-    for l in range(num_planes - 2, -1, -1):
-        y = torch.relu(_bn3d(x, W, f"{u}.up_bn_{l}", train))
-        x = torch.cat([enc[l], up_conv(y, vox.transitions[l], W[f"{u}.up_{l}.weight"], q)], 1)
-        for r in range(reps):
-            x = subm_conv(torch.relu(_bn3d(x, W, f"{u}.dec_{l}_{r}.bn", train)),
-                          vox.levels[l], W[f"{u}.dec_{l}_{r}.conv.weight"], q)
-    x = torch.relu(_bn3d(x, W, "net_3d.out_bn", train))
+
+
+def point_heads(W: Dict[str, torch.Tensor], x: torch.Tensor,
+                vox: Voxels) -> Dict[str, torch.Tensor]:
+    """The program's `Net3DSeg` output: the (V0, m) voxel features scattered
+    back to the points (zeros for a point in no voxel) -> {"seg_logit",
+    "seg_logit_point"}: (P, nc) logits of the main and the auxiliary head."""
+    ok = vox.point_voxel >= 0
+    v0 = vox.levels[0].num_voxels
     padded = torch.cat([x, x.new_zeros(1, x.shape[1])])
     point_out = padded[torch.where(ok, vox.point_voxel, v0)]
     return {key: point_out @ W[f"{head}.weight"].T + W[f"{head}.bias"]

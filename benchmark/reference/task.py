@@ -10,7 +10,8 @@ train step sums the losses of both domains, back-propagates, and takes one
 AdamW step per branch (weight decay from the pre-update weights) at the
 one-cycle rate of that step.  Eval: both branches in eval mode, the mean of
 the two softmaxes as the ensemble, and the 2D, 3D and ensemble confusion
-matrices [label, prediction] over the labelled valid points.
+matrices [label, prediction] over the labelled valid points.  The 3D
+network is the configuration's (`models.net3d.name`), found in `arch3d`.
 
 `Reference(config, weights, device, q)`: `q` is the operand precision of
 every product (`quant.fp32`, the reference; `quant.fp8`, the control).
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 from torch.optim.lr_scheduler import OneCycleLR
 
-from . import nets
+from . import arch3d, nets
 from .quant import fp32
 from .voxels import Voxels, voxelize
 
@@ -131,12 +132,11 @@ class Reference:
         self.device = torch.device(device)
         self.q = q
         self.nc = config["num_classes"]
+        self.config = config
+        self.net3d = arch3d.lookup(config)
         b3 = config["models"]["net3d"]["backbone_3d"]
         self.full_scale = b3["full_scale"]
         self.num_planes = b3["num_planes"]
-        self.reps = b3.get("block_reps", 1)
-        if b3.get("residual_blocks", False):
-            raise ValueError("the reference has no residual 3D blocks")
         ce = [e for e in config["losses"] if e["name"] == "cross_entropy"][0]
         self.ce_weight = float(ce.get("weight", 1.0))
         self.class_weights = torch.tensor(ce["args"]["weight"], dtype=torch.float32,
@@ -161,8 +161,8 @@ class Reference:
     def forward(self, b: Dict[str, torch.Tensor], train: bool, gen=None):
         p2 = nets.net2d(self.W["2d"], b["img"], b["depth"], b["img_indices"],
                         b["point_mask"], train, gen, self.q)
-        p3 = nets.net3d(self.W["3d"], b["feats"], self.voxels(b), self.num_planes,
-                        self.reps, train, self.q)
+        p3 = self.net3d.forward(self.W["3d"], b["feats"], self.voxels(b), self.config,
+                                train, self.q)
         return ({k: v.reshape(-1, self.nc) for k, v in p2.items()}, p3)
 
     def seg_loss(self, logits, labels, valid):

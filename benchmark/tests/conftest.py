@@ -27,11 +27,24 @@ def cuda_device():
     return torch.device("cuda")
 
 
+HELD_OUT = os.path.join(BENCH, "tests", "held_out_cells.json")
+
+
 @pytest.fixture(scope="session")
 def manifest_data():
+    """`BENCHMARK.json` with the entries of `held_out_cells.json` added: the
+    cells held out of the benchmark while the program fails on some of their
+    seeds, so that the harness's paths for them stay under test."""
+    import json
+
     from core import manifest
 
-    return manifest.load()
+    man = manifest.load()
+    with open(HELD_OUT) as f:
+        held = json.load(f)
+    for key in ("workloads", "end_to_end", "per_layer"):
+        man[key] = man[key] + held[key]
+    return man
 
 
 def tiny_spec(man, cell: str, dtype: str = "float32"):

@@ -7,12 +7,21 @@ import shutil
 
 import pytest
 
-from conftest import BENCH, tiny_spec
+from conftest import BENCH, HELD_OUT, tiny_spec
 from core import manifest
 
 
 def test_manifest_has_no_problems(manifest_data):
     assert manifest.problems(manifest_data) == []
+
+
+def test_held_out_cells_are_not_in_the_committed_manifest():
+    man = manifest.load()
+    with open(HELD_OUT) as f:
+        held = json.load(f)
+    assert manifest.problems(man) == []
+    for key in ("workloads", "end_to_end", "per_layer"):
+        assert not {e["name"] for e in man[key]} & {e["name"] for e in held[key]}
 
 
 @pytest.mark.parametrize("edit, fragment", [

@@ -15,7 +15,7 @@ from conftest import BENCH, ROOT
 
 def _run(cwd, env=None):
     return subprocess.run([sys.executable, "benchmark/run.py", "--workload",
-                           "nusc_usa_sing.eval", "--seed", "5", "--seconds", "1",
+                           "nusc_usa_sing.train", "--seed", "5", "--seconds", "1",
                            "--trace", "0"], cwd=cwd, capture_output=True, text=True,
                           timeout=300, env=env)
 
