@@ -1,9 +1,10 @@
 """Model plugin registry (port of `mm2d3d_tpu/models/registry.py`).
 
-Built-in models register by name (`net2d`, `net3d`); `load_model("name" |
-"pkg.module", **cfg)` resolves a registry entry or imports a module that
-exports ``Model`` (and optionally ``signature`` and ``dependencies``), and
-passes only the config keys the model's constructor declares.
+Built-in models register by name (`net2d`, `net3d`, `minkunet34c`);
+`load_model("name" | "pkg.module", **cfg)` resolves a registry entry or
+imports a module that exports ``Model`` (and optionally ``signature`` and
+``dependencies``), and passes only the config keys the model's constructor
+declares.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ def load_model(name: str, **config):
 
 
 def _register_builtins():
+    from .minkunet import MinkUNet34CSeg
     from .net2d import Net2DSeg
     from .sparse_unet import Net3DSeg
 
@@ -71,6 +73,15 @@ def _register_builtins():
         ),
         dependencies=["torch"],
     )(Net3DSeg)
+    register_model(
+        "minkunet34c",
+        signature=(
+            {"feats": np.zeros([10240, 3], np.float32)},
+            {"seg_logit": np.zeros([10240, 6], np.float32),
+             "confidence": np.zeros([10240, 1], np.float32)},
+        ),
+        dependencies=["torch"],
+    )(MinkUNet34CSeg)
 
 
 _register_builtins()

@@ -7,26 +7,31 @@ kernels keep the JAX layout (K, Cin, Cout).  Convolutions run in
 `compute_dtype` and return fp32.  Batch norms take the statistics of the
 valid rows in train mode (`nn.Module.train()`) and their running statistics
 in eval mode.  With `residual_blocks` the U-Net's blocks are SCN residual
-blocks (`ResidualBlock`) instead of VGG blocks.
+blocks (`ResidualBlock`) instead of VGG blocks.  `GatedTrunk` is the branch
+around any sparse trunk (gate, pool, unpool, heads), which `Net3DSeg` and
+`models.minkunet.MinkUNet34CSeg` share.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.hierarchy import GridLevel, Hierarchy, LevelTransition
-from ..ops.spconv import down_conv2, masked_batch_norm_stats, subm_conv3, up_conv2
+from ..ops.spconv import (
+    down_conv2, masked_batch_norm_stats, subm_conv3, subm_conv5, up_conv2,
+)
 from ..ops.voxelize import VoxelGrid, pool_features, unpool_features
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the valid rows only (eps 1e-4).  Train mode: the
-    biased mean and variance of the valid rows, differentiable, and the
-    running statistics move to 0.9 old + 0.1 batch; eval mode: the running
-    statistics.  Returns the input's dtype, as the flax module does."""
+    """BatchNorm over the valid rows only (eps 1e-4 unless given).  Train
+    mode: the biased mean and variance of the valid rows, differentiable,
+    and the running statistics move to 0.9 old + 0.1 batch; eval mode: the
+    running statistics.  Returns the input's dtype, as the flax module
+    does."""
 
     momentum = 0.9  # flax's: running = 0.9 old + 0.1 batch
 
@@ -51,15 +56,22 @@ class MaskedBatchNorm(nn.Module):
 
 
 class SubmConv(nn.Module):
-    """Submanifold 3x3x3 convolution, weight (27, cin, cout)."""
+    """Submanifold convolution: 3x3x3, weight (27, cin, cout), over the
+    level's slot or 27-neighbour tables; or with `kernel_size` 5 a 5x5x5
+    one, weight (125, cin, cout), over its 125-neighbour table
+    (`GridLevel.nbr5`)."""
 
-    def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype):
+    def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype,
+                 kernel_size: int = 3):
         super().__init__()
+        if kernel_size not in (3, 5):
+            raise ValueError(f"kernel_size must be 3 or 5, got {kernel_size}")
         self.compute_dtype = compute_dtype
-        self.weight = nn.Parameter(torch.empty(27, cin, cout))
+        self.conv = subm_conv3 if kernel_size == 3 else subm_conv5
+        self.weight = nn.Parameter(torch.empty(kernel_size ** 3, cin, cout))
 
     def forward(self, x: torch.Tensor, level: GridLevel) -> torch.Tensor:
-        return subm_conv3(x, level, self.weight, self.compute_dtype)
+        return self.conv(x, level, self.weight, self.compute_dtype)
 
 
 class DownConv(nn.Module):
@@ -80,6 +92,19 @@ class UpConv(nn.Module):
 
     def forward(self, x: torch.Tensor, trans: LevelTransition) -> torch.Tensor:
         return up_conv2(x, trans, self.weight, self.compute_dtype)
+
+
+class Conv1x1(nn.Module):
+    """A 1x1 convolution over the voxels, weight (cin, cout): one product,
+    in `compute_dtype`, fp32 out."""
+
+    def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.empty(cin, cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (x.to(self.compute_dtype) @ self.weight.to(self.compute_dtype)).float()
 
 
 class VGGBlock(nn.Module):
@@ -183,21 +208,25 @@ class UNetSCN3D(nn.Module):
         return torch.relu(self.out_bn(x, hier.levels[0].valid))
 
 
-class Net3DSeg(nn.Module):
-    """3D branch: sigmoid-gated RGB point feats -> mean pool -> sparse U-Net
-    -> unpool -> main and auxiliary linear heads; the gate is returned as
-    the per-point "confidence"."""
+class GatedTrunk(nn.Module):
+    """3D branch around a sparse trunk (`make_trunk()`, voxel features of
+    `width` channels from the hierarchy): sigmoid-gated RGB point feats ->
+    mean pool -> trunk -> unpool -> main and auxiliary linear heads; the
+    gate is returned as the per-point "confidence".  `num_levels` and
+    `stem_kernel` declare the topology the trunk needs, which the task
+    builds (`MM2D3DTask.build_topology`): that many levels, and level 0's
+    125-neighbour table where the stem is 5^3."""
 
-    def __init__(self, num_classes: int, in_channels: int = 3, m: int = 16,
-                 block_reps: int = 1, num_planes: int = 7,
-                 compute_dtype: torch.dtype = torch.bfloat16,
-                 residual_blocks: bool = False):
+    stem_kernel = 3
+
+    def __init__(self, num_classes: int, in_channels: int, width: int,
+                 make_trunk: Callable[[], nn.Module], num_levels: int):
         super().__init__()
+        self.num_levels = num_levels
         self.linear_rgb_mask = nn.Linear(in_channels, 1)
-        self.net_3d = UNetSCN3D(in_channels, m, block_reps, num_planes,
-                                compute_dtype, residual_blocks)
-        self.linear = nn.Linear(m, num_classes)
-        self.aux_linear_point = nn.Linear(m, num_classes)
+        self.net_3d = make_trunk()
+        self.linear = nn.Linear(width, num_classes)
+        self.aux_linear_point = nn.Linear(width, num_classes)
 
     def forward(self, point_feats: torch.Tensor, grid: VoxelGrid,
                 hier: Hierarchy) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
@@ -210,3 +239,16 @@ class Net3DSeg(nn.Module):
         aux = {"feats": point_out,
                "seg_logit_point": self.aux_linear_point(point_out)}
         return preds, point_out, aux
+
+
+class Net3DSeg(GatedTrunk):
+    """The SCN U-Net branch: `GatedTrunk` around `UNetSCN3D` (m channels,
+    `num_planes` levels, a 3^3 input convolution)."""
+
+    def __init__(self, num_classes: int, in_channels: int = 3, m: int = 16,
+                 block_reps: int = 1, num_planes: int = 7,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 residual_blocks: bool = False):
+        super().__init__(num_classes, in_channels, m, lambda: UNetSCN3D(
+            in_channels, m, block_reps, num_planes, compute_dtype, residual_blocks),
+            num_planes)

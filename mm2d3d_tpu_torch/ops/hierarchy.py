@@ -7,7 +7,9 @@ otherwise (`build_nbr`), and every finer level's table and tier-1 slots
 come from octree propagation through the K3 kernel (`ops.kernels.propagate`),
 followed by the compacted overflow tiers of each level's slot spec (or no
 slot tables, for the dense 27-tap path).  All tables are int32 and
-bit-identical to the JAX package's.
+bit-identical to the JAX package's.  A 5^3 stem convolution's 125-neighbour
+table at level 0 (`build_nbr5`) is propagated from level 1's 27-neighbour
+table; the JAX package has none.
 """
 
 from __future__ import annotations
@@ -30,6 +32,24 @@ OFFSETS_27 = np.array(
 )  # (27, 3), lexicographic; index 13 is the centre
 CENTER = 13
 OFF_CENTER = [k for k in range(27) if k != CENTER]
+OFFSETS_125 = np.array(
+    list(itertools.product(range(-2, 3), repeat=3)), dtype=np.int32
+)  # (125, 3), lexicographic; tap k pairs with 124 - k
+CENTER_125 = 62
+
+
+def _nbr5_tables():
+    """Per parity class p = (x & 1) * 4 + (y & 1) * 2 + (z & 1) of a fine
+    voxel and per 5^3 offset d: the coarse 3^3 tap of the parent that holds
+    the neighbour at d, and the neighbour's octant in that parent's 2x2x2
+    block -> two (125, 8) int64 tables.  Per axis the fine coordinate
+    2c + r plus d in [-2, 2] lies in parent c + ((r + d) >> 1), offset
+    -1..1, at bit (r + d) & 1."""
+    par = np.array(list(itertools.product((0, 1), repeat=3)), np.int64)  # (8, 3)
+    s = OFFSETS_125[:, None, :] + par[None]  # (125, 8, 3)
+    a, o = (s >> 1) + 1, s & 1
+    return (a[..., 0] * 9 + a[..., 1] * 3 + a[..., 2],
+            o[..., 0] * 4 + o[..., 1] * 2 + o[..., 2])
 
 # Dense-map neighbour lookup bound (fs^3 * batches int32 entries).
 _DENSE_NBR_MAX_ENTRIES = 1 << 22
@@ -42,6 +62,7 @@ _CONSTANTS = {
                          in itertools.product((0, 1), repeat=3)], np.int64),
     "octants": np.arange(8, dtype=np.int32),  # the child table's taps
 }
+_CONSTANTS["nbr5_taps"], _CONSTANTS["nbr5_octants"] = _nbr5_tables()
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,6 +95,8 @@ class GridLevel:
     slot_invm: Optional[torch.Tensor] = None  # (V,) int32 in [0, Vm]
     slot_srcm: Optional[torch.Tensor] = None  # (Hm, Vm)
     slot_tapm: Optional[torch.Tensor] = None
+    # the 5^3 stem's 125-neighbour table (level 0 only, `build_nbr5`)
+    nbr5: Optional[torch.Tensor] = None  # (125, V) int32 in [0, V]; V = missing
 
     @property
     def capacity(self) -> int:
@@ -140,6 +163,33 @@ def build_nbr(grid: VoxelGrid, num_batches: Optional[int] = None) -> torch.Tenso
         hit = K.lookup_pairs(grid.key_hi, grid.key_lo, q_hi, q_lo, missing=v)
     center = torch.where(grid.valid, rows, v).to(torch.int32)
     return torch.cat([hit[:CENTER], center[None], hit[CENTER:]])
+
+
+def build_nbr5(fine: VoxelGrid, trans: LevelTransition,
+               nbr_c: torch.Tensor) -> torch.Tensor:
+    """125-neighbour table (125, Vf) of a fine level, in `OFFSETS_125` tap
+    order, from the next coarser level's 27-neighbour table: the 27 parents
+    of a voxel's 3^3 parent neighbourhood hold every fine voxel at offsets
+    -2..2, so tap d of voxel v is the child, at the octant `_nbr5_tables`
+    gives, of the parent's neighbour at the coarse tap it gives.  Missing
+    parents and children, out-of-grid offsets and invalid rows give Vf;
+    the centre is the row itself where valid, as in `build_nbr`.  Gathers
+    only: no search, no kernel of its own."""
+    vf = fine.capacity
+    vc = nbr_c.shape[1]
+    dev = fine.coords.device
+    rel = (fine.coords & 1).long()
+    par = rel[:, 0] * 4 + rel[:, 1] * 2 + rel[:, 2]  # (Vf,)
+    taps = _on_device("nbr5_taps", dev)[:, par]  # (125, Vf)
+    octants = _on_device("nbr5_octants", dev)[:, par]  # (125, Vf)
+    nbr_c_pad = torch.cat([nbr_c, nbr_c.new_full((27, 1), vc)], 1)  # (27, Vc + 1)
+    parents = nbr_c_pad[:, trans.parent.long()]  # (27, Vf); dumped -> vc
+    coarse = parents.gather(0, taps).long()  # (125, Vf) in [0, Vc]
+    child_pad = torch.cat([trans.child, trans.child.new_full((1, 8), vf)])
+    nbr = child_pad.reshape(-1)[coarse * 8 + octants]
+    rows = torch.arange(vf, dtype=torch.int32, device=dev)
+    nbr[CENTER_125] = torch.where(fine.valid, rows, vf)
+    return nbr
 
 
 def _compact_indices(mask: torch.Tensor, cap: int, fill: int):
@@ -312,7 +362,8 @@ def _check_spec(l: int, spec: SlotSpec) -> SlotSpec:
 def build_hierarchy(grid: VoxelGrid, num_levels: int,
                     capacities: Sequence[int],
                     slot_caps: Optional[Sequence[SlotSpec]],
-                    num_batches: Optional[int], child_slot_caps=None) -> Hierarchy:
+                    num_batches: Optional[int], child_slot_caps=None,
+                    stem_kernel: int = 3) -> Hierarchy:
     """All U-Net levels from the level-0 grid.
 
     `slot_caps[l]` takes every form the JAX `build_hierarchy` takes: a
@@ -332,7 +383,15 @@ def build_hierarchy(grid: VoxelGrid, num_levels: int,
     (`build_child_slots`; "default" or one (h_lo, vh_cap) or None per
     transition, `child_slot_spec`), which the strided convolutions then
     take (`ops.spconv.down_conv2`, `up_conv2`); None (the default) keeps
-    the plain child table, as in JAX."""
+    the plain child table, as in JAX.  `stem_kernel` is the size of the 3D
+    network's first convolution: 5 adds level 0's 125-neighbour table
+    (`GridLevel.nbr5`, `build_nbr5`)."""
+    if stem_kernel not in (3, 5):
+        raise ValueError(f"stem_kernel must be 3 or 5, got {stem_kernel}")
+    nbr5 = stem_kernel == 5
+    if nbr5 and num_levels < 2:
+        raise ValueError("the 125-neighbour table is propagated from level 1: "
+                         f"num_levels must be at least 2, got {num_levels}")
     grids: List[VoxelGrid] = [grid]
     transitions: List[LevelTransition] = []
     with span("topology/coarsen"):
@@ -363,6 +422,9 @@ def build_hierarchy(grid: VoxelGrid, num_levels: int,
             nbrs[l], s1, t1, cnt = propagate_nbr_slots(
                 grids[l], transitions[l], nbrs[l + 1], h1s[l])
             tier1[l] = (s1, t1, cnt)
+    if nbr5:
+        with span("topology/nbr5"):
+            nbr5_0 = build_nbr5(grids[0], transitions[0], nbrs[1])
 
     levels = []
     with span("topology/slots"):
@@ -385,4 +447,6 @@ def build_hierarchy(grid: VoxelGrid, num_levels: int,
             elif spec:
                 lev.slot_overflow = _over_tail(cnt, spec)
             levels.append(lev)
+    if nbr5:
+        levels[0].nbr5 = nbr5_0
     return Hierarchy(levels=tuple(levels), transitions=tuple(transitions))

@@ -13,7 +13,9 @@ the per-tap weights into fp32:
 
 A level without slot tables takes the dense 27-tap submanifold conv
 (`_SubmDense`): all 27 neighbour rows gathered by the level's `nbr` table
-and contracted by the K6 kernel (`ops.kernels.tapsum.tapsum`).
+and contracted by the K6 kernel (`ops.kernels.tapsum.tapsum`).  The 5^3
+submanifold conv (`subm_conv5`, a stem over level 0's 125-neighbour table
+`nbr5`) is the same dense form with 125 taps.
 
 Each form is a `torch.autograd.Function` whose backward mirrors the JAX
 package's custom VJP line for line.  The input gradient is K1 again over the
@@ -188,25 +190,26 @@ class _SubmSlots1(torch.autograd.Function):
 
 
 class _SubmDense(torch.autograd.Function):
-    """Dense 27-tap form (`_subm_apply`; `_subm_fwd` / `_subm_bwd`)."""
+    """Dense K-tap form over a (K, V) neighbour table (`_subm_apply`;
+    `_subm_fwd` / `_subm_bwd`): K = 27 over `nbr`, K = 125 over `nbr5`."""
 
     @staticmethod
-    def forward(ctx, feats, weight, level: GridLevel):
+    def forward(ctx, feats, weight, nbr: torch.Tensor):
         # the gathered neighbourhoods are the residual: the weight gradient
         # needs exactly this tensor, as in JAX
-        gathered = _take(_pad_zero_row(feats), level.nbr)  # (27, V, Ci)
+        gathered = _take(_pad_zero_row(feats), nbr)  # (K, V, Ci)
         ctx.save_for_backward(weight)
-        ctx.res = (gathered, level)
+        ctx.res = (gathered, nbr)
         return tapsum(gathered, weight)
 
     @staticmethod
     def backward(ctx, g):
         (weight,) = ctx.saved_tensors
-        gathered, lev = ctx.res
+        gathered, nbr = ctx.res
         g = g.to(gathered.dtype).contiguous()  # a slice when the output was concatenated
-        # the dense table is symmetric: tap k of v pairs with tap 26 - k
-        d_feats = tapsum(_take(_pad_zero_row(g), lev.nbr), _flip(weight))
-        d_weight = torch.einsum("kvi,vo->kio", gathered, g)  # (27, Ci, Co)
+        # the dense table is symmetric: tap k of v pairs with tap K - 1 - k
+        d_feats = tapsum(_take(_pad_zero_row(g), nbr), _flip(weight))
+        d_weight = torch.einsum("kvi,vo->kio", gathered, g)  # (K, Ci, Co)
         return d_feats.to(gathered.dtype), d_weight.to(weight.dtype), None
 
 
@@ -217,11 +220,30 @@ def subm_conv3(feats: torch.Tensor, level: GridLevel, weight: torch.Tensor,
 
     feats (V, Cin), weight (27, Cin, Cout) in `hierarchy.OFFSETS_27` tap
     order -> (V, Cout) fp32."""
-    fn = (_SubmDense if level.slot_src is None
-          else _SubmSlots3 if level.slot_srcm is not None
+    feats = feats.to(compute_dtype)
+    weight = weight.to(compute_dtype).contiguous()
+    if level.slot_src is None:
+        return _SubmDense.apply(feats, weight, level.nbr)
+    fn = (_SubmSlots3 if level.slot_srcm is not None
           else _SubmSlots2 if level.slot_src2 is not None else _SubmSlots1)
-    return fn.apply(feats.to(compute_dtype),
-                    weight.to(compute_dtype).contiguous(), level)
+    return fn.apply(feats, weight, level)
+
+
+def subm_conv5(feats: torch.Tensor, level: GridLevel, weight: torch.Tensor,
+               compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Submanifold 5x5x5 convolution over the level's 125-neighbour table
+    (`level.nbr5`, built by `build_topology(..., stem_kernel=5)`): the dense
+    form, its 125 taps' rows gathered and contracted by K6, forward and
+    input gradient (flipped taps, k <-> 124 - k); the weight gradient a
+    product of the kept gather and the output gradient.
+
+    feats (V, Cin), weight (125, Cin, Cout) in `hierarchy.OFFSETS_125` tap
+    order -> (V, Cout) fp32."""
+    if level.nbr5 is None:
+        raise ValueError("the level has no 125-neighbour table: build the "
+                         "topology with stem_kernel=5 for a 5^3 convolution")
+    return _SubmDense.apply(feats.to(compute_dtype),
+                            weight.to(compute_dtype).contiguous(), level.nbr5)
 
 
 # ---------------------------------------------------------------------------

@@ -71,11 +71,18 @@ def build_task(cfg: Dict, num_classes: int, device="cuda", group=None):
     model2d = load_model(name2d, num_classes=num_classes, compute_dtype=dtype,
                          frozen_batch_norm=frozen,
                          **cfg["models"]["net2d"].get("args", {}))
+    # only the shape keys the config gives: the named network takes those
+    # its constructor declares, and its own defaults stand for the rest
+    shape3d = {k: m3[k] for k in ("m", "block_reps", "num_planes") if k in m3}
     model3d = load_model(
         name3d, num_classes=num_classes, in_channels=m3.get("in_channels", 3),
-        m=m3["m"], block_reps=m3.get("block_reps", 1), residual_blocks=residual,
-        num_planes=m3["num_planes"], compute_dtype=dtype,
+        residual_blocks=residual, compute_dtype=dtype, **shape3d,
         **cfg["models"]["net3d"].get("args", {}))
+    levels = getattr(model3d, "num_levels", None)
+    if levels is not None and m3.get("num_planes", levels) != levels:
+        raise ValueError(
+            f"models.net3d.backbone_3d.num_planes is {m3['num_planes']}, but "
+            f"{name3d!r} runs on {levels} levels")
     task = MM2D3DTask(
         num_classes=num_classes,
         class_weights=cw,
@@ -83,9 +90,6 @@ def build_task(cfg: Dict, num_classes: int, device="cuda", group=None):
         lambda_xm_src=params.get("lambda_xm_src", 1.0),
         lambda_xm_trg=params.get("lambda_xm_trg", 0.1),
         full_scale=m3["full_scale"],
-        num_planes=m3["num_planes"],
-        m=m3["m"],
-        block_reps=m3.get("block_reps", 1),
         residual_blocks=residual,
         in_channels_3d=m3.get("in_channels", 3),
         frozen_batch_norm=frozen,
@@ -95,6 +99,7 @@ def build_task(cfg: Dict, num_classes: int, device="cuda", group=None):
         model2d=model2d,
         model3d=model3d,
         device=device,
+        **shape3d,
         slot_profile=cfg["train"].get("slot_profile", "default"),
         group=group,
     )

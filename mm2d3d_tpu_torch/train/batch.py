@@ -164,7 +164,8 @@ def default_slot_caps(num_levels: int,
 def build_topology(batch: PointBatch, full_scale: int, num_levels: int,
                    capacities: Optional[Tuple[int, ...]] = None,
                    slot_caps="default", slot_profile: str = "default",
-                   child_slot_caps=None) -> Tuple[VoxelGrid, Hierarchy]:
+                   child_slot_caps=None,
+                   stem_kernel: int = 3) -> Tuple[VoxelGrid, Hierarchy]:
     """Voxelize the batch and build the sparse U-Net hierarchy, as the JAX
     `build_topology`: `capacities` default to `default_capacities`;
     `slot_caps="default"` takes `default_slot_caps`, both of the
@@ -173,7 +174,8 @@ def build_topology(batch: PointBatch, full_scale: int, num_levels: int,
     sequence takes any form `ops.hierarchy.build_hierarchy` takes.
     `child_slot_caps` ("default" or per-transition specs) adds the child
     slot tables that put the strided convs on their slot form (the JAX
-    `build_hierarchy(child_slot_caps=)`)."""
+    `build_hierarchy(child_slot_caps=)`).  `stem_kernel` 5 adds level 0's
+    125-neighbour table for a 5^3 stem convolution (`GridLevel.nbr5`)."""
     coords, _, _, mask, bidx = flatten_points(batch)
     if capacities is None:
         capacities = default_capacities(coords.shape[0], num_levels,
@@ -188,5 +190,6 @@ def build_topology(batch: PointBatch, full_scale: int, num_levels: int,
                         presorted=batch.coords_sorted)
     hier = build_hierarchy(grid, num_levels, capacities, slot_caps,
                            num_batches=batch.batch_size,
-                           child_slot_caps=child_slot_caps)
+                           child_slot_caps=child_slot_caps,
+                           stem_kernel=stem_kernel)
     return grid, hier

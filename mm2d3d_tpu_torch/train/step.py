@@ -33,7 +33,7 @@ from ..models.convert import from_flax
 from ..models.net2d import Net2DSeg
 from ..models.resnet2d import BatchNorm2d
 from ..models.sparse_unet import (
-    DownConv, MaskedBatchNorm, Net3DSeg, ResidualBlock, SubmConv, UpConv,
+    Conv1x1, DownConv, MaskedBatchNorm, Net3DSeg, ResidualBlock, SubmConv, UpConv,
 )
 from ..utils import profiling
 from ..utils.profiling import span
@@ -81,9 +81,9 @@ def slot_overflow(hier) -> torch.Tensor:
 
 
 def _init_(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded init: He-normal sparse kernels (fan-in = taps * Cin) and
-    residual shortcuts, LeCun-normal dense kernels, zero biases, identity
-    batch norms (the frozen ones too)."""
+    """Seeded init: He-normal sparse kernels (fan-in = taps * Cin), residual
+    shortcuts and 1x1 convolutions (fan-in = Cin), LeCun-normal dense
+    kernels, zero biases, identity batch norms (the frozen ones too)."""
 
     def normal_(p: torch.Tensor, fan_in: int, gain: float) -> None:
         p.copy_(torch.randn(p.shape, generator=generator) * math.sqrt(gain / fan_in))
@@ -103,6 +103,8 @@ def _init_(module: nn.Module, generator: torch.Generator) -> None:
             m.running_var.fill_(1.0)
         elif isinstance(m, ResidualBlock) and m.nin_kernel is not None:
             normal_(m.nin_kernel, m.nin_kernel.shape[0], 2.0)
+        elif isinstance(m, Conv1x1):
+            normal_(m.weight, m.weight.shape[0], 2.0)
         if getattr(m, "bn_scale", None) is not None:  # a frozen BatchNorm
             m.bn_scale.fill_(1.0)
             m.bn_bias.zero_()
@@ -125,7 +127,10 @@ class MM2D3DTask:
     "default" (32-beam nuScenes-style scans) or "dense" (64-beam
     KITTI-family scans; `train.batch.default_slot_caps`).
     `residual_blocks` and `frozen_batch_norm` shape the default networks,
-    as in JAX; an optimizer config's `accumulate_steps` k > 1 averages the
+    as in JAX; a 3D network that declares its topology (`num_levels`,
+    `stem_kernel`: `models.sparse_unet.GatedTrunk`) gets that many levels,
+    and level 0's 125-neighbour table where its stem is 5^3; an optimizer
+    config's `accumulate_steps` k > 1 averages the
     gradients of k train steps per update (`optim.MultiSteps`), while the
     running statistics and `step` (and with it the dropout stream) move on
     every train step.  `group` is the process group of a data-parallel run
@@ -152,7 +157,6 @@ class MM2D3DTask:
         self.lambda_xm_src = lambda_xm_src
         self.lambda_xm_trg = lambda_xm_trg
         self.full_scale = full_scale
-        self.num_planes = num_planes
         self.device = resolve_device(device)
         self.class_weights = (
             None if class_weights is None
@@ -166,6 +170,8 @@ class MM2D3DTask:
                                  compute_dtype=compute_dtype,
                                  residual_blocks=residual_blocks)
                         if model3d is None else model3d)
+        self.num_planes = getattr(self.model3d, "num_levels", num_planes)
+        self.stem_kernel = getattr(self.model3d, "stem_kernel", 3)
         for net in (self.model2d, self.model3d):
             net.eval()
         self.optimizer_2d = optimizer_2d or {"name": "adamw", "lr": 1e-3}
@@ -215,9 +221,11 @@ class MM2D3DTask:
         self._reset_optimizers()
 
     def build_topology(self, batch: PointBatch):
-        """The batch's default topology under the task's slot profile."""
+        """The batch's default topology under the task's slot profile, with
+        the levels and tables the 3D network declares."""
         return build_topology(batch, self.full_scale, self.num_planes,
-                              slot_profile=self.slot_profile)
+                              slot_profile=self.slot_profile,
+                              stem_kernel=self.stem_kernel)
 
     # -- forward ---------------------------------------------------------
 

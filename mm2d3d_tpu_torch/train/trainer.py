@@ -213,6 +213,11 @@ class Trainer:
                 print("train.host_topology is off under data parallelism: each "
                       "rank builds its topologies on its device", flush=True)
             host_topology = False
+        if host_topology and getattr(task, "stem_kernel", 3) != 3:
+            raise ValueError(
+                "train.host_topology builds no 125-neighbour table, which the 3D "
+                f"network's {task.stem_kernel}^3 stem needs: set "
+                "train.host_topology=false")
         self.host_topology = host_topology
         if host_topology:
             from .. import native

@@ -3,9 +3,11 @@ PyTorch versions on the card, at edge shapes the flagship does not reach:
 ragged voxel counts, more than 128 output channels, Ci = 3 and 224, odd
 image sizes and crops, empty inputs, NaN, and the inputs the kernels
 refuse, and the shapes the KITTI-family configs give K1, K2 (the dense
-slot profile's level-0 tiers) and K4 (their stem outputs); the autograd Functions around them (the sparse-conv adjoints, the
-dense form's and the strided convs' child-slot form (K = 8) included, the
-stem pool's and the fused head's backward) on
+slot profile's level-0 tiers, MinkUNet34C's Ci 384 / Co 256 convs), K6
+(MinkUNet34C's 5^3 stem) and K4 (their stem outputs); the 125-neighbour
+table; the autograd Functions around them (the sparse-conv adjoints, the
+dense form's, the 5^3 stem's and the strided convs' child-slot form (K = 8)
+included, the stem pool's and the fused head's backward) on
 the card against the same Functions on the CPU; the 2D branch's
 train-mode gradients on the card against the CPU's; host-built
 topologies copied to the card against the card's own build; and the
@@ -88,6 +90,10 @@ BANDMM = {
     "kitti_l0_tier1_centre": (163840, 3, 27, 16, 16, True, {}),
     "kitti_l0_mid": (76800, 5, 27, 16, 16, False, {}),
     "kitti_l0_heavy": (15360, 18, 27, 16, 16, False, {}),
+    # MinkUNet34C's widest 3^3 convs: block5.0's conv1 (Ci 384, Co 256) at
+    # level 3 of the KITTI train step, tier 1 with the centre and the mid tier
+    "mink_l3_ci384_tier1_centre": (40960, 4, 27, 384, 256, True, {}),
+    "mink_l3_ci384_mid": (19200, 4, 27, 384, 256, False, {}),
 }
 
 
@@ -209,6 +215,9 @@ BANDMM_DW = {
     "kitti_l0_tier1_centre": (163840, 3, 27, 16, 16, True, {}),
     "kitti_l0_mid": (76800, 5, 27, 16, 16, False, {}),
     "kitti_l0_heavy": (15360, 18, 27, 16, 16, False, {}),
+    # MinkUNet34C's widest 3^3 convs (block5.0's conv1, level 3, KITTI)
+    "mink_l3_ci384_tier1_centre": (40960, 4, 27, 384, 256, True, {}),
+    "mink_l3_ci384_mid": (19200, 4, 27, 384, 256, False, {}),
 }
 
 
@@ -252,12 +261,17 @@ def _hierarchies(dev, child_slot_caps=None):
     for d in (dev, torch.device("cpu")):
         grid = voxelize(coords.to(d), batch.to(d), valid.to(d), fs, capacity=caps[0])
         out.append(H.build_hierarchy(grid, 3, caps, slot_caps, num_batches=2,
-                                     child_slot_caps=child_slot_caps))
+                                     child_slot_caps=child_slot_caps, stem_kernel=5))
     return out
 
 
+def test_nbr5_on_card_equals_cpu(dev):
+    hg, hc = _hierarchies(dev)
+    assert torch.equal(hg.levels[0].nbr5.cpu(), hc.levels[0].nbr5)
+
+
 CONV_FORMS = ["subm_3tier", "subm_2tier", "subm_1tier", "subm_dense", "down", "up",
-              "down_slots", "up_slots"]
+              "down_slots", "up_slots", "subm5_dense"]
 NO_SLOTS = dict(slot_src=None, slot_tap=None, slot_overflow=None, slot_idx=None,
                 slot_src2=None, slot_tap2=None, slot_idxm=None, slot_invm=None,
                 slot_srcm=None, slot_tapm=None)
@@ -269,7 +283,13 @@ def test_conv_adjoints_on_card_match_cpu(dev, form):
     hg, hc = _hierarchies(dev, "default" if form.endswith("_slots") else None)
     r = np.random.RandomState(CONV_FORMS.index(form))
     cin, cout = 12, 20
-    if form.startswith("subm"):
+    if form == "subm5_dense":  # the 5^3 stem: K6 both ways over 125 taps
+        lg, lc = hg.levels[0], hc.levels[0]
+        rows_in = rows_out = lc.capacity
+        fn = {dev.type: lambda x, w: S.subm_conv5(x, lg, w, torch.float32),
+              "cpu": lambda x, w: S.subm_conv5(x, lc, w, torch.float32)}
+        k = 125
+    elif form.startswith("subm"):
         l = 1 if form == "subm_2tier" else 0
         lg, lc = hg.levels[l], hc.levels[l]
         if form == "subm_1tier":
@@ -384,6 +404,10 @@ TAPSUM = {
     # split-K shapes of the flagship's deep levels (L5 decoder concat, L6)
     "split_dec_l5_concat": (27, 4096, 192, 96),
     "split_enc_l6": (27, 2048, 112, 112),
+    # MinkUNet34C's 5^3 stem at level 0 of the KITTI train step: the
+    # forward (Ci = 3, CUDA cores) and its input gradient (Ci 32 -> Co 3)
+    "stem5_ci3_co32": (125, 163840, 3, 32),
+    "long_tile_stem5_adjoint": (125, 163840, 32, 3),
 }
 
 
