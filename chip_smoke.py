@@ -102,7 +102,7 @@ import torch.nn.functional as F
 
 from mm2d3d_tpu_torch.tools.kernel_cases import (
     BATCH, PROBE_KERNELS, cuda_ms, expected_launches, expected_train_launches,
-    flagship_batch)
+    flagship_batch, scn_gathers)
 
 K1_REL_TOL = 1e-4  # max |kernel - plain| <= 1e-4 * max |plain| (K1, K2, K5, K6, K10)
 LOGIT_REL_TOL = 1e-3  # card vs CPU, fp32 forward and train step
@@ -398,6 +398,65 @@ def check_k6(res: Results, dev) -> None:
                     f"S={plan.splits}", err, tol, ms, plain,
                     bound(nbytes(g, wd, out), flops, dt), library)
         del x, g, wd, out, again, ref
+
+
+def slot_gather_cases(dev):
+    """(case, x, ids) of the slot gather at the path's shapes, over real
+    tables: the flagship's level-0 tier 1 (batch 8, Ci 16); MinkUNet34C's
+    5^3 stem over the KITTI step's level 0 (16 x 10,240 points), its
+    forward (Ci 3) and its input gradient (Co 32); its level-3 tier 1 at Ci
+    384 (block5.0's conv1); an fp32 child gather (Co 64, the parity dtype)."""
+    from mm2d3d_tpu_torch.tools.kernel_cases import KITTI_BATCH, kitti_batch
+    from mm2d3d_tpu_torch.train.batch import build_topology
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+
+    def feats(v, c, dt=torch.bfloat16):
+        return torch.randn((v, c), generator=gen, device=dev).to(dt)
+
+    _, flag = build_topology(flagship_batch(0, BATCH, dev), 4096, 7)
+    _, mink = build_topology(kitti_batch(0, KITTI_BATCH, dev), 4096, 5,
+                             slot_profile="dense", stem_kernel=5)
+    l0, l3 = mink.levels[0], mink.levels[3]
+    return [
+        ("flagship L0 tier1 Ci=16 bfloat16", feats(flag.levels[0].capacity, 16),
+         flag.levels[0].slot_src),
+        ("mink stem grad (125, V0) C=32 bfloat16", feats(l0.capacity, 32), l0.nbr5),
+        ("mink stem fwd (125, V0) C=3 bfloat16", feats(l0.capacity, 3), l0.nbr5),
+        ("mink L3 tier1 Ci=384 bfloat16", feats(l3.capacity, 384), l3.slot_src),
+        ("flagship L0->L1 child Co=64 float32",
+         feats(flag.levels[0].capacity, 64, torch.float32), flag.transitions[0].child),
+    ]
+
+
+def check_slot_gather(res: Results, dev) -> None:
+    """The slot gather bit-equal to its plain version at the path's shapes
+    (`slot_gather_cases`), two calls bit-identical; its bound: the output
+    written, the ids and the distinct rows they reach read once
+    (`gathered_bytes`); the library call: the gather it replaced,
+    `padded[ids64]` over the map with its zero row and int64 ids made
+    beforehand (the pad and the cast besides are logged)."""
+    from mm2d3d_tpu_torch.ops.kernels.slot_gather import slot_gather, slot_gather_ref
+
+    for case, x, ids in slot_gather_cases(dev):
+        out, again, ref = slot_gather(x, ids), slot_gather(x, ids), slot_gather_ref(x, ids)
+        if not (torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+                and torch.equal(out.view(torch.uint8), again.view(torch.uint8))):
+            raise AssertionError(f"slot_gather {case}: not bit-equal")
+        padded = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+        ids64 = torch.clamp(ids, max=x.shape[0]).long()
+        ms = cuda_ms(lambda: slot_gather(x, ids))
+        plain = cuda_ms(lambda: slot_gather_ref(x, ids), reps=5)
+        library = cuda_ms(lambda: padded[ids64], reps=5)
+        whole = cuda_ms(lambda: torch.cat([x, x.new_zeros((1, x.shape[1]))])[ids.long()],
+                        reps=5)
+        pad_share = float((ids >= x.shape[0]).float().mean())
+        res.add("slot_gather", f"{case} ids {tuple(ids.shape)} pad {pad_share:.2f}",
+                0.0, 0.0, ms, plain, bound(nbytes(ids, out) + gathered_bytes(x, ids)),
+                library)
+        log(f"  slot_gather {case}: the replaced path (pad, int64 ids, gather) "
+            f"{whole:.4f} ms")
+        del out, again, ref, padded, ids64
 
 
 def check_k5(res: Results, dev) -> None:
@@ -863,12 +922,13 @@ def expected_optin_launches(hier) -> dict:
     topology's build included: K3 at every level but the coarsest (the
     tables only, h1 = 0), K4 once per encoder, K5 once, K6 once per
     submanifold conv (input conv, encoder and decoder blocks), K1 once per
-    strided conv; the probe kernels never."""
+    strided conv, the slot gathers as `scn_gathers`; the probe kernels
+    never."""
     n = len(hier.levels)
     assert all(lvl.slot_src is None for lvl in hier.levels)
     return {"propagate": n - 1, "maxpool": 2, "head2d": 1, "tapsum": 2 * n,
             "bandmm": 2 * (n - 1), "bandmm_dw": 0, "batchnorm2d": 0,
-            **dict.fromkeys(PROBE_KERNELS, 0)}
+            "slot_gather": scn_gathers(hier)[0], **dict.fromkeys(PROBE_KERNELS, 0)}
 
 
 def expected_optin_train_launches(hiers) -> dict:
@@ -878,12 +938,13 @@ def expected_optin_train_launches(hiers) -> dict:
     plain PyTorch, as the JAX package's are XLA's; the 2D BatchNorms as on
     the default path."""
     out = dict.fromkeys(("propagate", "maxpool", "head2d", "tapsum", "bandmm",
-                         "bandmm_dw", "batchnorm2d", *PROBE_KERNELS), 0)
+                         "bandmm_dw", "batchnorm2d", "slot_gather", *PROBE_KERNELS), 0)
     for hier in hiers:
         ev = expected_optin_launches(hier)
         for k in ("propagate", "maxpool", "head2d"):
             out[k] += ev[k]
         out["batchnorm2d"] += expected_train_launches([hier])["batchnorm2d"]
+        out["slot_gather"] += sum(scn_gathers(hier))
         out["tapsum"] += 2 * ev["tapsum"]
         out["bandmm"] += 2 * ev["bandmm"]
         out["bandmm_dw"] += ev["bandmm"]
@@ -1466,7 +1527,7 @@ def run_kitti_config(dev, config: str, roots: dict, root: str, extra=()):
 
     def expected(kept):
         exp = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0,
-               "head2d": 0, "tapsum": 0, "batchnorm2d": 0,
+               "head2d": 0, "tapsum": 0, "batchnorm2d": 0, "slot_gather": 0,
                **dict.fromkeys(PROBE_KERNELS, 0)}
         for kind, hier in kept:
             one = (expected_launches(hier) if kind in ("eval", "viz") else
@@ -2214,7 +2275,7 @@ def run_cli_data_parallel(dev) -> dict:
 
         def expected(r):
             exp = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0,
-                   "head2d": 0, "tapsum": 0, "batchnorm2d": 0,
+                   "head2d": 0, "tapsum": 0, "batchnorm2d": 0, "slot_gather": 0,
                    **dict.fromkeys(PROBE_KERNELS, 0)}
             for t in r["topologies"]:
                 for k, n in t["expected"].items():
@@ -2345,7 +2406,7 @@ def run_data_parallel(dev) -> dict:
 
 # launches per generated scan: one eval forward at batch 1 (PERF.md, Findings)
 GEN_PER_SCAN = {"bandmm": 51, "propagate": 6, "maxpool": 2, "bandmm_dw": 0,
-                "head2d": 0, "tapsum": 0, "batchnorm2d": 0,
+                "head2d": 0, "tapsum": 0, "batchnorm2d": 0, "slot_gather": 62,
                 **dict.fromkeys(PROBE_KERNELS, 0)}
 PSELAB_MARGIN, PSELAB_PROB_TOL = 1e-3, 1e-4  # card vs CPU records, fp32
 FIG_STEPS = 2
@@ -2520,7 +2581,7 @@ def run_learning_check(dev) -> dict:
             raise AssertionError(f"14b: check{' --mutate' if mutate else ''} exited "
                                  f"{rc}, expected {rc_want}")
         if mutate:
-            for name in ("bandmm", "bandmm_dw"):
+            for name in ("bandmm", "bandmm_dw", "slot_gather"):
                 if not 0 < launches[name] < want[name]:
                     raise AssertionError(f"14b --mutate: {name} {launches[name]} "
                                          f"launches vs {want[name]} unmutated")
@@ -3522,6 +3583,7 @@ def run_all(dev, cli_root: str) -> int:
     check_k6(res, dev)
     check_k5(res, dev)
     check_bn(res, dev)
+    check_slot_gather(res, dev)
 
     log("phase 4: slice, bf16, batch 8")
     launches, slice_ms = run_slice(dev)
@@ -3632,7 +3694,8 @@ def run_all(dev, cli_root: str) -> int:
                  "exp_window_copy": "H=3 V=65536 Ci=16 w=1024",
                  "exp_window_gather": "H=3 V=65536 Ci=16 w=1024",
                  "exp_bandmm": "real-table E=full 64 voxels/block V=65536",
-                 "batchnorm2d": "flagship stem rgb"}
+                 "batchnorm2d": "flagship stem rgb",
+                 "slot_gather": "mink stem grad (125, V0) C=32"}
     # each kernel's launches on the path it runs on: the eval forward of
     # phase 4 (K1, K3, K4), the train step of phase 6 (K2), the opt-in eval
     # forward of phase 8 (K5, K6); "cli_launches": phase 10's fit through

@@ -141,7 +141,7 @@ def all_kernels() -> Dict[str, Kernel]:
     # importing the kernel modules registers them
     from . import (  # noqa: F401
         bandmm, bandmm_dw, batchnorm2d, exp_bandmm, exp_gather, head2d, maxpool,
-        propagate, tapsum,
+        propagate, slot_gather, tapsum,
     )
 
     return dict(_REGISTRY)

@@ -1,8 +1,10 @@
 """Sparse convolution ops and their adjoints (port of `mm2d3d_tpu/ops/spconv.py`).
 
-Each convolution gathers the rows its slot tables name and hands them to the
-K1 kernel (`ops.kernels.bandmm.slot_conv_apply`), which contracts them with
-the per-tap weights into fp32:
+Each convolution gathers the rows its slot tables name
+(`ops.kernels.slot_gather`: an id past the rows gives zeros, so no padded
+copy of the map is made) and hands them to the K1 kernel
+(`ops.kernels.bandmm.slot_conv_apply`), which contracts them with the
+per-tap weights into fp32:
 
 - submanifold 3^3 over the 3-tier, 2-tier or 1-tier slot tables of a level;
 - the stride-2 down convolution (per-tap product + segment sum over the
@@ -38,6 +40,7 @@ import torch
 from .hierarchy import GridLevel, LevelTransition
 from .kernels.bandmm import slot_conv_apply
 from .kernels.bandmm_dw import slot_conv_dw
+from .kernels.slot_gather import slot_gather
 from .kernels.tapsum import tapsum
 
 # Fault injection for the flagship learning check
@@ -49,18 +52,9 @@ from .kernels.tapsum import tapsum
 _DEBUG_DROP_COMPACT_TIERS_BWD = False
 
 
-def _pad_zero_row(feats: torch.Tensor) -> torch.Tensor:
-    return torch.cat([feats, feats.new_zeros((1, feats.shape[-1]))])
-
-
 def _masked(feats: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid[:, None], feats, torch.zeros((), dtype=feats.dtype,
                                                           device=feats.device))
-
-
-def _take(padded: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows of `padded` (V + 1, C) at int32 indices in [0, V]."""
-    return padded[idx.long()]
 
 
 def _scatter_add_rows(out: torch.Tensor, idx: torch.Tensor,
@@ -71,7 +65,7 @@ def _scatter_add_rows(out: torch.Tensor, idx: torch.Tensor,
     at one real index: each sum has a single term, and the card's atomics
     (only the dropped pad row takes many) give the same bits every run."""
     v = out.shape[0]
-    padded = _pad_zero_row(out)
+    padded = torch.cat([out, out.new_zeros((1, out.shape[1]))])
     padded.index_add_(0, torch.clamp(idx, max=v).long(), rows)
     return padded[:v]
 
@@ -79,7 +73,7 @@ def _scatter_add_rows(out: torch.Tensor, idx: torch.Tensor,
 def _gather_add_rows(out: torch.Tensor, inv: torch.Tensor,
                      rows: torch.Tensor) -> torch.Tensor:
     """out[v] += rows[inv[v]]; inv == len(rows) contributes nothing."""
-    return out + _take(_pad_zero_row(rows), inv)
+    return out + slot_gather(rows, inv)
 
 
 def _flip(weight: torch.Tensor) -> torch.Tensor:
@@ -96,14 +90,13 @@ class _SubmSlots3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, weight, level: GridLevel):
-        padded = _pad_zero_row(feats)
         xc = _masked(feats, level.valid)
-        x1 = _take(padded, level.slot_src)  # (h1, V, Ci)
+        x1 = slot_gather(feats, level.slot_src)  # (h1, V, Ci)
         out = slot_conv_apply(xc, x1, level.slot_tap, weight)
-        xm = _take(padded, level.slot_srcm)  # (Hm, Vm, Ci)
+        xm = slot_gather(feats, level.slot_srcm)  # (Hm, Vm, Ci)
         out = _gather_add_rows(out, level.slot_invm,
                                slot_conv_apply(None, xm, level.slot_tapm, weight))
-        xh = _take(padded, level.slot_src2)  # (Hh, Vh, Ci)
+        xh = slot_gather(feats, level.slot_src2)  # (Hh, Vh, Ci)
         out = _scatter_add_rows(out, level.slot_idx,
                                 slot_conv_apply(None, xh, level.slot_tap2, weight))
         ctx.save_for_backward(weight)
@@ -116,17 +109,16 @@ class _SubmSlots3(torch.autograd.Function):
         xc, x1, xm, xh, lev = ctx.res
         g = g.to(xc.dtype).contiguous()  # a slice when the output was concatenated
         w_flip = _flip(weight)
-        g_pad = _pad_zero_row(g)
-        d_feats = slot_conv_apply(_masked(g, lev.valid), _take(g_pad, lev.slot_src),
+        d_feats = slot_conv_apply(_masked(g, lev.valid), slot_gather(g, lev.slot_src),
                                   lev.slot_tap, w_flip)
         d_weight = slot_conv_dw(xc, x1, lev.slot_tap, g)
         if not _DEBUG_DROP_COMPACT_TIERS_BWD:
             d_feats = _gather_add_rows(d_feats, lev.slot_invm, slot_conv_apply(
-                None, _take(g_pad, lev.slot_srcm), lev.slot_tapm, w_flip))
+                None, slot_gather(g, lev.slot_srcm), lev.slot_tapm, w_flip))
             d_feats = _scatter_add_rows(d_feats, lev.slot_idx, slot_conv_apply(
-                None, _take(g_pad, lev.slot_src2), lev.slot_tap2, w_flip))
-            g_m = _take(g_pad, lev.slot_idxm)  # (Vm, Co)
-            g_h = _take(g_pad, lev.slot_idx)  # (Vh, Co)
+                None, slot_gather(g, lev.slot_src2), lev.slot_tap2, w_flip))
+            g_m = slot_gather(g, lev.slot_idxm)  # (Vm, Co)
+            g_h = slot_gather(g, lev.slot_idx)  # (Vh, Co)
             d_weight = (d_weight + slot_conv_dw(None, xm, lev.slot_tapm, g_m)
                         + slot_conv_dw(None, xh, lev.slot_tap2, g_h))
         return d_feats.to(xc.dtype), d_weight.to(weight.dtype), None
@@ -137,11 +129,10 @@ class _SubmSlots2(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, weight, level: GridLevel):
-        padded = _pad_zero_row(feats)
         xc = _masked(feats, level.valid)
-        x1 = _take(padded, level.slot_src)  # (h_lo, V, Ci)
+        x1 = slot_gather(feats, level.slot_src)  # (h_lo, V, Ci)
         out = slot_conv_apply(xc, x1, level.slot_tap, weight)
-        x2 = _take(padded, level.slot_src2)  # (H2, Vh, Ci)
+        x2 = slot_gather(feats, level.slot_src2)  # (H2, Vh, Ci)
         out = _scatter_add_rows(out, level.slot_idx,
                                 slot_conv_apply(None, x2, level.slot_tap2, weight))
         ctx.save_for_backward(weight)
@@ -154,13 +145,12 @@ class _SubmSlots2(torch.autograd.Function):
         xc, x1, x2, lev = ctx.res
         g = g.to(xc.dtype).contiguous()  # a slice when the output was concatenated
         w_flip = _flip(weight)
-        g_pad = _pad_zero_row(g)
-        d_feats = slot_conv_apply(_masked(g, lev.valid), _take(g_pad, lev.slot_src),
+        d_feats = slot_conv_apply(_masked(g, lev.valid), slot_gather(g, lev.slot_src),
                                   lev.slot_tap, w_flip)
-        d2 = slot_conv_apply(None, _take(g_pad, lev.slot_src2), lev.slot_tap2,
+        d2 = slot_conv_apply(None, slot_gather(g, lev.slot_src2), lev.slot_tap2,
                              w_flip)  # (Vh, Ci)
         d_feats = _scatter_add_rows(d_feats, lev.slot_idx, d2)
-        g_hi = _take(g_pad, lev.slot_idx)  # (Vh, Co)
+        g_hi = slot_gather(g, lev.slot_idx)  # (Vh, Co)
         d_weight = (slot_conv_dw(xc, x1, lev.slot_tap, g)
                     + slot_conv_dw(None, x2, lev.slot_tap2, g_hi))
         return d_feats.to(xc.dtype), d_weight.to(weight.dtype), None
@@ -172,7 +162,7 @@ class _SubmSlots1(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, weight, level: GridLevel):
         xc = _masked(feats, level.valid)
-        x1 = _take(_pad_zero_row(feats), level.slot_src)  # (H, V, Ci)
+        x1 = slot_gather(feats, level.slot_src)  # (H, V, Ci)
         ctx.save_for_backward(weight)
         ctx.res = (xc, x1, level)
         return slot_conv_apply(xc, x1, level.slot_tap, weight)
@@ -182,8 +172,7 @@ class _SubmSlots1(torch.autograd.Function):
         (weight,) = ctx.saved_tensors
         xc, x1, lev = ctx.res
         g = g.to(xc.dtype).contiguous()  # a slice when the output was concatenated
-        d_feats = slot_conv_apply(_masked(g, lev.valid),
-                                  _take(_pad_zero_row(g), lev.slot_src),
+        d_feats = slot_conv_apply(_masked(g, lev.valid), slot_gather(g, lev.slot_src),
                                   lev.slot_tap, _flip(weight))
         d_weight = slot_conv_dw(xc, x1, lev.slot_tap, g)
         return d_feats.to(xc.dtype), d_weight.to(weight.dtype), None
@@ -197,7 +186,7 @@ class _SubmDense(torch.autograd.Function):
     def forward(ctx, feats, weight, nbr: torch.Tensor):
         # the gathered neighbourhoods are the residual: the weight gradient
         # needs exactly this tensor, as in JAX
-        gathered = _take(_pad_zero_row(feats), nbr)  # (K, V, Ci)
+        gathered = slot_gather(feats, nbr)  # (K, V, Ci)
         ctx.save_for_backward(weight)
         ctx.res = (gathered, nbr)
         return tapsum(gathered, weight)
@@ -208,7 +197,7 @@ class _SubmDense(torch.autograd.Function):
         gathered, nbr = ctx.res
         g = g.to(gathered.dtype).contiguous()  # a slice when the output was concatenated
         # the dense table is symmetric: tap k of v pairs with tap K - 1 - k
-        d_feats = tapsum(_take(_pad_zero_row(g), nbr), _flip(weight))
+        d_feats = tapsum(slot_gather(g, nbr), _flip(weight))
         d_weight = torch.einsum("kvi,vo->kio", gathered, g)  # (K, Ci, Co)
         return d_feats.to(gathered.dtype), d_weight.to(weight.dtype), None
 
@@ -260,9 +249,7 @@ def _per_tap_matmul(x: torch.Tensor, off_id: torch.Tensor,
 def _up_apply_raw(coarse: torch.Tensor, weight: torch.Tensor,
                   parent: torch.Tensor, off_id: torch.Tensor) -> torch.Tensor:
     """out[f] = coarse[parent[f]] @ weight[off_id[f]] (dumped parents -> 0)."""
-    vc = coarse.shape[0]
-    xg = _take(_pad_zero_row(coarse), torch.clamp(parent, max=vc))
-    return _per_tap_matmul(xg, off_id, weight)
+    return _per_tap_matmul(slot_gather(coarse, parent), off_id, weight)
 
 
 def _down_seg_raw(fine: torch.Tensor, weight: torch.Tensor,
@@ -275,7 +262,7 @@ def _down_seg_raw(fine: torch.Tensor, weight: torch.Tensor,
     the JAX package's sorted segment sum (off_id is the Morton order of the
     2x2x2 cell); no atomics."""
     y = _per_tap_matmul(fine, trans.off_id, weight)
-    return _take(_pad_zero_row(y), trans.child).sum(1)
+    return slot_gather(y, trans.child).sum(1)
 
 
 def _down_dw(fine: torch.Tensor, off_id: torch.Tensor,
@@ -289,22 +276,22 @@ class _Down(torch.autograd.Function):
     """Strided down conv (`_down_apply`; backward `_down_bwd`)."""
 
     @staticmethod
-    def forward(ctx, fine, weight, trans: LevelTransition, vc: int):
+    def forward(ctx, fine, weight, trans: LevelTransition):
         ctx.save_for_backward(fine, weight)
-        ctx.res = (trans, vc)
+        ctx.trans = trans
         return _down_seg_raw(fine, weight, trans)
 
     @staticmethod
     def backward(ctx, g):
         fine, weight = ctx.saved_tensors
-        trans, vc = ctx.res
+        trans = ctx.trans
         g = g.to(fine.dtype).contiguous()
         # transpose of down conv = deconv through (parent, off_id)
         d_fine = _up_apply_raw(g, weight.transpose(1, 2).contiguous(),
                                trans.parent, trans.off_id)
-        gp = _take(_pad_zero_row(g), torch.clamp(trans.parent, max=vc))
+        gp = slot_gather(g, trans.parent)
         d_weight = _down_dw(fine, trans.off_id, gp)
-        return d_fine.to(fine.dtype), d_weight.to(weight.dtype), None, None
+        return d_fine.to(fine.dtype), d_weight.to(weight.dtype), None
 
 
 class _Up(torch.autograd.Function):
@@ -320,11 +307,10 @@ class _Up(torch.autograd.Function):
     def backward(ctx, g):
         coarse, weight = ctx.saved_tensors
         trans = ctx.trans
-        vc = coarse.shape[0]
         g = g.to(coarse.dtype).contiguous()
         # transpose of deconv = down conv through (parent, off_id)
         d_coarse = _down_seg_raw(g, weight.transpose(1, 2).contiguous(), trans)
-        gp = _take(_pad_zero_row(coarse), torch.clamp(trans.parent, max=vc))
+        gp = slot_gather(coarse, trans.parent)
         d_weight = _down_dw(gp, trans.off_id, g)
         return d_coarse.to(coarse.dtype), d_weight.to(weight.dtype), None
 
@@ -337,10 +323,9 @@ class _DownSlots(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, fine, weight, trans: LevelTransition):
-        padded = _pad_zero_row(fine)
-        x1 = _take(padded, trans.cslot_src)  # (h_lo, Vc, Ci)
+        x1 = slot_gather(fine, trans.cslot_src)  # (h_lo, Vc, Ci)
         out = slot_conv_apply(None, x1, trans.cslot_tap, weight)
-        x2 = _take(padded, trans.cslot_src2)  # (8 - h_lo, Vh, Ci)
+        x2 = slot_gather(fine, trans.cslot_src2)  # (8 - h_lo, Vh, Ci)
         out = _scatter_add_rows(out, trans.cslot_idx, slot_conv_apply(
             None, x2, trans.cslot_tap2, weight))
         ctx.save_for_backward(weight)
@@ -355,7 +340,7 @@ class _DownSlots(torch.autograd.Function):
         # transpose of down conv = deconv through (parent, off_id), as dense
         d_fine = _up_apply_raw(g, weight.transpose(1, 2).contiguous(),
                                trans.parent, trans.off_id)
-        g_hi = _take(_pad_zero_row(g), trans.cslot_idx)  # (Vh, Co)
+        g_hi = slot_gather(g, trans.cslot_idx)  # (Vh, Co)
         d_weight = (slot_conv_dw(None, x1, trans.cslot_tap, g, k_taps=8)
                     + slot_conv_dw(None, x2, trans.cslot_tap2, g_hi, k_taps=8))
         return d_fine.to(x1.dtype), d_weight.to(weight.dtype), None
@@ -370,16 +355,14 @@ class _UpSlots(_Up):
     def backward(ctx, g):
         coarse, weight = ctx.saved_tensors
         trans = ctx.trans
-        vc = coarse.shape[0]
         g = g.to(coarse.dtype).contiguous()
         # transpose of deconv = down conv through the child slots
         w_t = weight.transpose(1, 2).contiguous()
-        g_pad = _pad_zero_row(g)
-        d_coarse = slot_conv_apply(None, _take(g_pad, trans.cslot_src),
+        d_coarse = slot_conv_apply(None, slot_gather(g, trans.cslot_src),
                                    trans.cslot_tap, w_t)
         d_coarse = _scatter_add_rows(d_coarse, trans.cslot_idx, slot_conv_apply(
-            None, _take(g_pad, trans.cslot_src2), trans.cslot_tap2, w_t))
-        gp = _take(_pad_zero_row(coarse), torch.clamp(trans.parent, max=vc))
+            None, slot_gather(g, trans.cslot_src2), trans.cslot_tap2, w_t))
+        gp = slot_gather(coarse, trans.parent)
         d_weight = _down_dw(gp, trans.off_id, g)
         return d_coarse.to(coarse.dtype), d_weight.to(weight.dtype), None
 
@@ -396,8 +379,7 @@ def down_conv2(fine_feats: torch.Tensor, trans: LevelTransition,
         return _DownSlots.apply(fine_feats.to(compute_dtype),
                                 weight.to(compute_dtype).contiguous(), trans)
     return _Down.apply(fine_feats.to(compute_dtype),
-                       weight.to(compute_dtype).contiguous(), trans,
-                       trans.child.shape[0])
+                       weight.to(compute_dtype).contiguous(), trans)
 
 
 def up_conv2(coarse_feats: torch.Tensor, trans: LevelTransition,

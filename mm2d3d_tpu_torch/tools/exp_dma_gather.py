@@ -12,8 +12,9 @@ same mechanisms on Hopper, at the TPU probe's own sizes (its three
 
   A. `torch.index_select` of H x V random rows of x (V, Ci): the library
      gather, the incumbent (the TPU's `jnp.take`); A2 the same rows as
-     the port's sparse convs gather them (`x[idx.long()]`,
-     `ops/spconv.py::_take`); then K7 per row on the same rows (B1), a
+     the port's sparse convs gathered them before their own kernel
+     (`x[idx.long()]`; now `ops/kernels/slot_gather.py`); then K7 per row
+     on the same rows (B1), a
      hand-written gather of the slot rows themselves.
   B. K7 `group_gather`: rows by group id with `cp.async`, at the TPU's
      grain G = 8 and per row (G = 1) at equal bytes, 128 lanes wide
@@ -102,7 +103,7 @@ def run_case(h: int, v: int, ci: int, dev, seed: int = 0) -> list:
           f"    -> {rows / a / 1e6:.2f} G rows/s", flush=True)
     out = [{"case": tag, "kernel": "index_select", "variant": "A", "ms": a,
             "rows": rows, "g_rows_per_s": rows / a / 1e6}]
-    # the port's own slot gather, `ops/spconv.py::_take`: x[idx.long()]
+    # the sparse convs' gather before `ops/kernels/slot_gather.py`: x[idx.long()]
     a2 = cuda_ms(lambda: x[idx.long()])
     print(f"A2 x[idx.long()]  {tag:34s} {a2:9.4f} ms\n"
           f"    -> {rows / a2 / 1e6:.2f} G rows/s", flush=True)

@@ -1,7 +1,8 @@
 """What `chip_smoke.py` and the kernel tools (`tools/slotconv_ab.py`,
 `tools/slotconv_tiles.py`, the probe tools) share: the flagship batch, the
 device timer, the kernel launches a hierarchy predicts (also for
-`tools/ddp_check.py`), K1's and K2's call forms at the flagship's shapes,
+`tools/ddp_check.py`; the slot gathers' per convolution, for the SCN
+U-Net and MinkUNet34C), K1's and K2's call forms at the flagship's shapes,
 at the KITTI-family configs' level-0 tiers (the dense slot profile, batch
 16 x 10,240 points), over the strided convs' child slots (K = 8, H = 3 and
 5) and at the tensor-core kernels' edges, and K9's and K10's at the TPU
@@ -82,13 +83,91 @@ def tiers(level) -> int:
     return 3 if level.slot_srcm is not None else (2 if level.slot_src2 is not None else 1)
 
 
+def _launched(*tables) -> int:
+    """Slot-gather launches over these id tables: one each, none for an
+    empty table."""
+    return sum(t.numel() > 0 for t in tables)
+
+
+def subm_gathers(level, mutate: bool = False) -> tuple:
+    """(forward, backward) slot-gather launches of one submanifold 3^3 conv
+    at `level`: one per id table `ops/spconv.py` gathers by, in each tier
+    form (the dense form: the 27-neighbour table once each way); `mutate`:
+    the learning check's fault, a 3-tier backward without its mid and heavy
+    tiers."""
+    if level.slot_src is None:
+        return _launched(level.nbr), _launched(level.nbr)
+    if level.slot_srcm is not None:
+        fwd = (level.slot_src, level.slot_srcm, level.slot_invm, level.slot_src2)
+        bwd = ((level.slot_src,) if mutate else
+               (level.slot_src, level.slot_invm, level.slot_srcm, level.slot_src2,
+                level.slot_idxm, level.slot_idx))
+    elif level.slot_src2 is not None:
+        fwd = (level.slot_src, level.slot_src2)
+        bwd = (level.slot_src, level.slot_src2, level.slot_idx)
+    else:
+        fwd = bwd = (level.slot_src,)
+    return _launched(*fwd), _launched(*bwd)
+
+
+def down_gathers(trans) -> tuple:
+    """(forward, backward) slot gathers of one stride-2 down conv: over the
+    child slots, or the child table and the parents (input gradient and
+    weight gradient) without them."""
+    if trans.cslot_src is not None:
+        return (_launched(trans.cslot_src, trans.cslot_src2),
+                _launched(trans.parent, trans.cslot_idx))
+    return _launched(trans.child), _launched(trans.parent, trans.parent)
+
+
+def up_gathers(trans) -> tuple:
+    """(forward, backward) slot gathers of one stride-2 transposed conv."""
+    if trans.cslot_src is not None:
+        return (_launched(trans.parent),
+                _launched(trans.cslot_src, trans.cslot_src2, trans.parent))
+    return _launched(trans.parent), _launched(trans.child, trans.parent)
+
+
+def _sum_pairs(pairs) -> tuple:
+    pairs = list(pairs)
+    return sum(f for f, _ in pairs), sum(b for _, b in pairs)
+
+
+def scn_gathers(hier, residual: bool = False, mutate: bool = False) -> tuple:
+    """(forward, backward) slot gathers of the SCN U-Net (block_reps 1): the
+    input conv, one block per level in the encoder and per level but the
+    coarsest in the decoder (two convs a block with `residual`), one down
+    and one up conv per transition."""
+    lv = hier.levels
+    convs = [lv[0]] + (2 if residual else 1) * (list(lv) + list(lv[:-1]))
+    return _sum_pairs([subm_gathers(l, mutate) for l in convs]
+                      + [down_gathers(t) for t in hier.transitions]
+                      + [up_gathers(t) for t in hier.transitions])
+
+
+def minkunet_gathers(hier) -> tuple:
+    """(forward, backward) slot gathers of MinkUNet34C
+    (`models/minkunet.py`): the 5^3 stem over level 0's 125-neighbour table,
+    then per encoder stage a down conv and two convs per BasicBlock at the
+    next level, per decoder stage an up conv and two convs per BasicBlock."""
+    from mm2d3d_tpu_torch.models.minkunet import LAYERS
+
+    lv, tr = hier.levels, hier.transitions
+    pairs = [(_launched(lv[0].nbr5), _launched(lv[0].nbr5))]
+    for i in range(4):
+        pairs += [down_gathers(tr[i])] + [subm_gathers(lv[i + 1])] * 2 * LAYERS[i]
+    for j in range(4):
+        pairs += [up_gathers(tr[3 - j])] + [subm_gathers(lv[3 - j])] * 2 * LAYERS[4 + j]
+    return _sum_pairs(pairs)
+
+
 def expected_launches(hier, residual: bool = False) -> dict:
     """Kernel launches of one forward, from the hierarchy: K3 at every level
     but the coarsest, K4 once per encoder, K1 once per tier of every
     submanifold conv (input conv, encoder and decoder blocks, two per
     block with `residual`) plus once per strided conv, and once more for
-    a down conv over child slots (its heavy tier); the probe kernels
-    never."""
+    a down conv over child slots (its heavy tier); the slot gathers as
+    `scn_gathers`; the probe kernels never."""
     lv = hier.levels
     n = len(lv)
     blocks = sum(tiers(l) for l in lv) + sum(tiers(l) for l in lv[:-1])
@@ -96,6 +175,7 @@ def expected_launches(hier, residual: bool = False) -> dict:
     k1 += sum(3 if t.cslot_src is not None else 2 for t in hier.transitions)
     return {"propagate": n - 1, "maxpool": 2, "bandmm": k1, "bandmm_dw": 0,
             "head2d": 0, "tapsum": 0, "batchnorm2d": 0,
+            "slot_gather": scn_gathers(hier, residual)[0],
             **dict.fromkeys(PROBE_KERNELS, 0)}
 
 
@@ -105,13 +185,15 @@ def expected_train_launches(hiers, residual: bool = False,
     per domain, K1 twice per eval-forward launch (forward and input
     gradient), K2 once per eval-forward K1 launch (weight gradient), K3 per
     topology (none for topologies built on the host), K4 per encoder as
-    in the forward (the pool's backward is PyTorch's) and the BatchNorm
+    in the forward (the pool's backward is PyTorch's), the BatchNorm
     kernels four times per train-form BatchNorm2d of the 2D forward (fewer
-    with `frozen_bn`).  Over child slots
+    with `frozen_bn`) and the slot gathers of the forward and the backward
+    (`scn_gathers`).  Over child slots
     the count holds too: the down conv's two K1 and two K2 calls, the up
     conv's input gradient's two K1 calls."""
     out = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0, "head2d": 0,
-           "tapsum": 0, "batchnorm2d": 0, **dict.fromkeys(PROBE_KERNELS, 0)}
+           "tapsum": 0, "batchnorm2d": 0, "slot_gather": 0,
+           **dict.fromkeys(PROBE_KERNELS, 0)}
     from mm2d3d_tpu_torch.ops.kernels.batchnorm2d import LAUNCHES_PER_CALL
 
     bn = LAUNCHES_PER_CALL * (BN2D_PER_FORWARD - (BN2D_FROZEN if frozen_bn else 0))
@@ -122,6 +204,7 @@ def expected_train_launches(hiers, residual: bool = False,
         out["propagate"] += 0 if host_built else ev["propagate"]
         out["maxpool"] += ev["maxpool"]
         out["batchnorm2d"] += bn
+        out["slot_gather"] += sum(scn_gathers(hier, residual))
     return out
 
 

@@ -13,7 +13,11 @@ train-mode gradients on the card against the CPU's; host-built
 topologies copied to the card against the card's own build; and the
 train-form BatchNorm kernels against their plain versions at the
 flagship's and KITTI's BatchNorm shapes and at edges, with their launch
-count per BatchNorm and per 2D train step.
+count per BatchNorm and per 2D train step; the sparse convolutions' slot
+gather bit for bit against its plain version at the path's shapes (the 5^3
+stem's 125-tap tables at C 3 and 32, a level-3 slot table at Ci 384, fp32,
+channel slices, ids outside the rows), with MinkUNet34C's launches per
+forward and backward.
 
 Needs a CUDA device (and nvcc to build the kernels); skips without one.  On
 a machine with a card and no JAX, run it without the repo's conftest.py
@@ -21,7 +25,7 @@ a machine with a card and no JAX, run it without the repo's conftest.py
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 
-K3 and K4 must be bit-identical to their plain versions; K1, K2, K5 and K6
+K3, K4 and the slot gather must be bit-identical to their plain versions; K1, K2, K5 and K6
 within 1e-4 * max|plain| (fp32 sums in another order), K1, K2 and K6
 bit-identical between two calls; the adjoints' gradients within 1e-4 * max|CPU| and the
 2D branch's within 1e-3 of its largest CPU gradient (TF32 off); the
@@ -907,3 +911,124 @@ def test_net2dseg_train_step_launches_batchnorm_kernels(dev, frozen):
     with torch.no_grad():
         net(img, depth, idx, mask, with_features=False)
     assert kernels.counts()["batchnorm2d"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the sparse convolutions' slot-row gather (ops/kernels/slot_gather.py)
+# ---------------------------------------------------------------------------
+
+# (x rows, x channels, id table shape, share of ids at the pad, dtype) at the
+# path's shapes: MinkUNet34C's 5^3 stem over the KITTI step's level 0 (16 x
+# 10,240 rows; its forward gathers Ci 3, its input gradient Co 32; 93% of
+# the ids are the pad), block5.0's tier-1 slot gather at level 3 (Ci 384),
+# and an fp32 child gather (the down conv's K1 output, parity dtype)
+SLOT_GATHER_CASES = {
+    "stem_fwd_c3": (163840, 3, (125, 163840), 0.93, torch.bfloat16),
+    "stem_grad_c32": (163840, 32, (125, 163840), 0.93, torch.bfloat16),
+    "mink_l3_slots_ci384": (40960, 384, (4, 40960), 0.5, torch.bfloat16),
+    "child_fp32_c64": (65536, 64, (16384, 8), 0.6, torch.float32),
+}
+
+
+def _gather_ids(r, v, shape, pad_share, dev):
+    ids = r.randint(0, v, size=shape)
+    ids[r.rand(*shape) < pad_share] = v
+    flat = ids.reshape(-1)
+    flat[:4] = (-1, v + 1, 2**31 - 1, v)  # outside the rows: zeros
+    return torch.from_numpy(ids.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("name", sorted(SLOT_GATHER_CASES))
+def test_slot_gather_is_its_plain_version_bit_for_bit(dev, name):
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.ops.kernels.slot_gather import slot_gather, slot_gather_ref
+
+    v, c, shape, pad, dtype = SLOT_GATHER_CASES[name]
+    r = np.random.RandomState(23)
+    x = torch.randn((v, c), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(dtype)
+    ids = _gather_ids(r, v, shape, pad, dev)
+    kernels.reset_counts()
+    out = slot_gather(x, ids)
+    again = slot_gather(x, ids)
+    torch.cuda.synchronize()
+    assert kernels.counts()["slot_gather"] == 2
+    assert out.shape == (*shape, c) and out.dtype == dtype
+    ref = slot_gather_ref(x, ids)
+    assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+    assert torch.equal(out.view(torch.uint8), again.view(torch.uint8))
+
+
+@pytest.mark.parametrize("first,width", [(32, 32), (3, 32), (1, 5), (64, 320)])
+def test_slot_gather_reads_a_channel_slice_through_its_stride(dev, first, width):
+    """Slices of a (V, 384) bf16 map: 16-byte chunks at channel 32, 2-byte
+    ones at channel 3 or for 5 channels; no copy of the slice."""
+    from mm2d3d_tpu_torch.ops.kernels.slot_gather import slot_gather, slot_gather_ref
+
+    r = np.random.RandomState(29)
+    wide = torch.randn((5000, 384), device=dev).to(torch.bfloat16)
+    part = wide[:, first:first + width]
+    ids = _gather_ids(r, 5000, (3, 4096), 0.4, dev)
+    out = slot_gather(part, ids)
+    assert torch.equal(out, slot_gather_ref(part.contiguous(), ids))
+    assert torch.equal(out, slot_gather(part.contiguous(), ids))
+
+
+def test_slot_gather_edges_and_refusals(dev):
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.ops.kernels.slot_gather import slot_gather, slot_gather_ref
+
+    r = np.random.RandomState(31)
+    for v, c, n in ((1, 8, 33), (37, 3, 1), (100, 1, 65), (0, 16, 40), (513, 7, 1000)):
+        x = torch.randn((v, c), device=dev)
+        ids = torch.from_numpy(r.randint(-2, v + 3, size=n).astype(np.int32)).to(dev)
+        for t in (x, x.to(torch.bfloat16)):
+            assert torch.equal(slot_gather(t, ids), slot_gather_ref(t, ids))
+    kernels.reset_counts()
+    empty = slot_gather(torch.randn((10, 16), device=dev),
+                        torch.zeros((3, 0), dtype=torch.int32, device=dev))
+    assert empty.shape == (3, 0, 16) and kernels.counts()["slot_gather"] == 0
+    x = torch.randn((10, 16), device=dev)
+    with pytest.raises(TypeError):
+        slot_gather(x, torch.zeros(4, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):
+        slot_gather(x, torch.zeros((4, 2), dtype=torch.int32, device=dev).t())
+    with pytest.raises(ValueError):
+        slot_gather(x.t(), torch.zeros(4, dtype=torch.int32, device=dev))
+
+
+def test_minkunet_gathers_launch_as_kernel_cases_counts(dev):
+    """MinkUNet34C's forward and backward on the card launch the slot gather
+    as `kernel_cases.minkunet_gathers` counts, and agree with the CPU's
+    within the card-vs-CPU tolerance of `chip_smoke.py` (1e-3 of the
+    largest, fp32: sums in another order over 55 convolutions)."""
+    from mm2d3d_tpu_torch.data.synthetic import make_batch
+    from mm2d3d_tpu_torch.models.minkunet import MinkUNet34CSeg
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.tools.kernel_cases import minkunet_gathers
+    from mm2d3d_tpu_torch.train.batch import build_topology, flatten_points
+    from mm2d3d_tpu_torch.train.step import _init_
+
+    b = make_batch(np.random.RandomState(2), batch_size=2, height=32, width=48,
+                   n_points=2048, full_scale=256, variant="kitti")
+    net = MinkUNet34CSeg(6, compute_dtype=torch.float32)
+    with torch.no_grad():
+        _init_(net, torch.Generator().manual_seed(1))
+    outs = {}
+    for d in ("cpu", dev):
+        bd = b.to(d)
+        grid, hier = build_topology(bd, 256, 5, capacities=(2560, 1536, 768, 384, 192),
+                                    slot_profile="dense", stem_kernel=5)
+        model = net.to(d)
+        model.zero_grad()
+        kernels.reset_counts()
+        preds, _, _ = model(flatten_points(bd)[1], grid, hier)
+        preds["seg_logit"].square().mean().backward()
+        if d != "cpu":
+            torch.cuda.synchronize()
+            assert kernels.counts()["slot_gather"] == sum(minkunet_gathers(hier))
+        outs[str(d)] = (preds["seg_logit"].detach().to("cpu", copy=True),
+                        model.net_3d.conv0p1s1.weight.grad.to("cpu", copy=True))
+    (lc, gc), (lg, gg) = outs["cpu"], outs[str(dev)]
+    assert float((lc - lg).abs().max()) <= 1e-3 * float(lc.abs().max())
+    assert float((gc - gg).abs().max()) <= 1e-3 * float(gc.abs().max())

@@ -102,7 +102,7 @@ def test_port_imports_without_jax():
         "assert sorted(kernels.all_kernels()) == ['bandmm', 'bandmm_dw', 'batchnorm2d', "
         "'exp_bandmm', "
         "'exp_group_gather', 'exp_window_copy', 'exp_window_gather', 'head2d', "
-        "'maxpool', 'propagate', 'tapsum']\n"
+        "'maxpool', 'propagate', 'slot_gather', 'tapsum']\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
