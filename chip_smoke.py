@@ -102,7 +102,7 @@ import torch.nn.functional as F
 
 from mm2d3d_tpu_torch.tools.kernel_cases import (
     BATCH, PROBE_KERNELS, cuda_ms, expected_launches, expected_train_launches,
-    flagship_batch, scn_gathers)
+    flagship_batch, no_launches)
 
 K1_REL_TOL = 1e-4  # max |kernel - plain| <= 1e-4 * max |plain| (K1, K2, K5, K6, K10)
 LOGIT_REL_TOL = 1e-3  # card vs CPU, fp32 forward and train step
@@ -919,36 +919,10 @@ def optin_task(dev, compute_dtype=torch.bfloat16):
 
 def expected_optin_launches(hier) -> dict:
     """Kernel launches of one eval forward on the opt-in path, its dense
-    topology's build included: K3 at every level but the coarsest (the
-    tables only, h1 = 0), K4 once per encoder, K5 once, K6 once per
-    submanifold conv (input conv, encoder and decoder blocks), K1 once per
-    strided conv, the slot gathers as `scn_gathers`; the probe kernels
-    never."""
-    n = len(hier.levels)
-    assert all(lvl.slot_src is None for lvl in hier.levels)
-    return {"propagate": n - 1, "maxpool": 2, "head2d": 1, "tapsum": 2 * n,
-            "bandmm": 2 * (n - 1), "bandmm_dw": 0, "batchnorm2d": 0,
-            "slot_gather": scn_gathers(hier)[0], **dict.fromkeys(PROBE_KERNELS, 0)}
-
-
-def expected_optin_train_launches(hiers) -> dict:
-    """Per train step, per domain: the forward's launches with K6 and K1
-    twice (forward and input gradient), K2 once per strided conv (weight
-    gradient); the dense convs' weight gradients and K5's backward are
-    plain PyTorch, as the JAX package's are XLA's; the 2D BatchNorms as on
-    the default path."""
-    out = dict.fromkeys(("propagate", "maxpool", "head2d", "tapsum", "bandmm",
-                         "bandmm_dw", "batchnorm2d", "slot_gather", *PROBE_KERNELS), 0)
-    for hier in hiers:
-        ev = expected_optin_launches(hier)
-        for k in ("propagate", "maxpool", "head2d"):
-            out[k] += ev[k]
-        out["batchnorm2d"] += expected_train_launches([hier])["batchnorm2d"]
-        out["slot_gather"] += sum(scn_gathers(hier))
-        out["tapsum"] += 2 * ev["tapsum"]
-        out["bandmm"] += 2 * ev["bandmm"]
-        out["bandmm_dw"] += ev["bandmm"]
-    return out
+    topology's build included: `expected_launches` with K5 once, K6 once
+    per submanifold conv (no level has a slot plan)."""
+    assert not any(lvl.slot_tiers() for lvl in hier.levels)
+    return expected_launches(hier, fused_head=True)
 
 
 def check_counts(launches, expected, what) -> None:
@@ -1027,8 +1001,8 @@ def run_optin(dev, default_losses):
     torch.cuda.synchronize()
     train_launches = kernels.counts()
     check_train_logs(logs)
-    per_step = expected_optin_train_launches(
-        [dense_topology(b)[1] for b in (src, trg)])
+    per_step = expected_train_launches([dense_topology(b)[1] for b in (src, trg)],
+                                       fused_head=True)
     check_counts(train_launches, {k: TRAIN_STEPS * n for k, n in per_step.items()},
                  "opt-in train")
     log(f"opt-in train: launch counts over {TRAIN_STEPS} steps {train_launches} "
@@ -1526,9 +1500,7 @@ def run_kitti_config(dev, config: str, roots: dict, root: str, extra=()):
             in_viz.pop()
 
     def expected(kept):
-        exp = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0,
-               "head2d": 0, "tapsum": 0, "batchnorm2d": 0, "slot_gather": 0,
-               **dict.fromkeys(PROBE_KERNELS, 0)}
+        exp = no_launches()
         for kind, hier in kept:
             one = (expected_launches(hier) if kind in ("eval", "viz") else
                    expected_train_launches([hier], host_built=kind == "host"))
@@ -2274,9 +2246,7 @@ def run_cli_data_parallel(dev) -> dict:
             return ranks, time.perf_counter() - t0
 
         def expected(r):
-            exp = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0,
-                   "head2d": 0, "tapsum": 0, "batchnorm2d": 0, "slot_gather": 0,
-                   **dict.fromkeys(PROBE_KERNELS, 0)}
+            exp = no_launches()
             for t in r["topologies"]:
                 for k, n in t["expected"].items():
                     exp[k] += n
@@ -2405,9 +2375,8 @@ def run_data_parallel(dev) -> dict:
 # --------------------------------------------------------------------------
 
 # launches per generated scan: one eval forward at batch 1 (PERF.md, Findings)
-GEN_PER_SCAN = {"bandmm": 51, "propagate": 6, "maxpool": 2, "bandmm_dw": 0,
-                "head2d": 0, "tapsum": 0, "batchnorm2d": 0, "slot_gather": 62,
-                **dict.fromkeys(PROBE_KERNELS, 0)}
+GEN_PER_SCAN = {**no_launches(), "bandmm": 51, "propagate": 6, "maxpool": 2,
+                "slot_gather": 62}
 PSELAB_MARGIN, PSELAB_PROB_TOL = 1e-3, 1e-4  # card vs CPU records, fp32
 FIG_STEPS = 2
 FIG_MIN_POINTS = 100  # points alone under their markers in 14c's figure

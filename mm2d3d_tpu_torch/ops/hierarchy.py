@@ -17,7 +17,7 @@ from __future__ import annotations
 import functools
 import itertools
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -72,6 +72,20 @@ def _on_device(name: str, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_CONSTANTS[name], device=device)
 
 
+class SlotTier(NamedTuple):
+    """One tier of a slot plan, as the sparse convolutions apply it: K1
+    over the rows `src` names at the taps `tap`, merged into the output by
+    its row map.  Tier 1 covers every output row (`rows` None); a
+    compacted tier's row j is output row `rows[j]`, added by a gather
+    through the inverse map `inv` (the mid tier) or, where `inv` is None,
+    by a scatter at `rows` (the heavy tier)."""
+
+    src: torch.Tensor  # (H, Vt) int32 source rows
+    tap: torch.Tensor  # (H, Vt) int32 taps
+    rows: Optional[torch.Tensor] = None  # (Vt,) int32 output row of each tier row
+    inv: Optional[torch.Tensor] = None  # (V,) int32 inverse of `rows`
+
+
 @dataclass
 class GridLevel:
     key_hi: torch.Tensor  # (V,) int32 sorted keys
@@ -102,6 +116,20 @@ class GridLevel:
     def capacity(self) -> int:
         return self.key_hi.shape[0]
 
+    def slot_tiers(self) -> Tuple[SlotTier, ...]:
+        """The level's slot plan in the order its tiers are applied and
+        summed: () without slot tables, tier 1, then the mid tier of the
+        3-tier form, then the heavy tier."""
+        if self.slot_src is None:
+            return ()
+        tiers = [SlotTier(self.slot_src, self.slot_tap)]
+        if self.slot_srcm is not None:
+            tiers.append(SlotTier(self.slot_srcm, self.slot_tapm, self.slot_idxm,
+                                  self.slot_invm))
+        if self.slot_src2 is not None:
+            tiers.append(SlotTier(self.slot_src2, self.slot_tap2, self.slot_idx))
+        return tuple(tiers)
+
 
 @dataclass
 class LevelTransition:
@@ -119,6 +147,14 @@ class LevelTransition:
     cslot_src2: Optional[torch.Tensor] = None  # (8 - h_lo, Vh)
     cslot_tap2: Optional[torch.Tensor] = None
     cslot_overflow: Optional[torch.Tensor] = None  # () int32 dropped children
+
+    def child_tiers(self) -> Tuple[SlotTier, ...]:
+        """The child slots as a slot plan over the coarse rows (K = 8): ()
+        without them, else tier 1 and the heavy tier."""
+        if self.cslot_src is None:
+            return ()
+        return (SlotTier(self.cslot_src, self.cslot_tap),
+                SlotTier(self.cslot_src2, self.cslot_tap2, self.cslot_idx))
 
 
 @dataclass

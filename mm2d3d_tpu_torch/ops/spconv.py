@@ -6,12 +6,18 @@ copy of the map is made) and hands them to the K1 kernel
 (`ops.kernels.bandmm.slot_conv_apply`), which contracts them with the
 per-tap weights into fp32:
 
-- submanifold 3^3 over the 3-tier, 2-tier or 1-tier slot tables of a level;
+- submanifold 3^3 over the slot plan of a level (`GridLevel.slot_tiers`:
+  tier 1, then the compacted mid and heavy tiers where the level has them);
 - the stride-2 down convolution (per-tap product + segment sum over the
   Morton-sorted parent ids) and the stride-2 transposed convolution, or,
   where the hierarchy packed the child tables into slots
   (`hierarchy.build_child_slots`), the down convolution as K1 over the child
-  slots (K = 8) and the transposed convolution's input gradient likewise.
+  slots' plan (`LevelTransition.child_tiers`, K = 8) and the transposed
+  convolution's input gradient likewise.
+
+Every slot form applies its plan through `_apply_tiers` (K1 a tier, tiers
+2-3 merged into tier 1's rows in order) and takes its weight gradient
+through `_dw_tiers` (K2 a tier, summed in tier order).
 
 A level without slot tables takes the dense 27-tap submanifold conv
 (`_SubmDense`): all 27 neighbour rows gathered by the level's `nbr` table
@@ -81,100 +87,67 @@ def _flip(weight: torch.Tensor) -> torch.Tensor:
     return weight.flip(0).transpose(1, 2).contiguous()
 
 
+def _apply_tiers(centre, x, tiers, weight, keep: bool = True):
+    """K1 over a slot plan (`GridLevel.slot_tiers`, `LevelTransition
+    .child_tiers`): each tier's rows of x gathered and contracted, the
+    centre (or None) on tier 1 only, tiers 2-3 merged in order into tier
+    1's output, by a gather through `inv` or a scatter at `rows` ->
+    (out (V, Co) fp32, the gathered rows of each tier, or () without
+    `keep`).  Each tier's temporaries go before the next is gathered."""
+    out, kept = None, []
+    for t in tiers:
+        xt = slot_gather(x, t.src)  # (H, Vt, Ci)
+        y = slot_conv_apply(centre, xt, t.tap, weight)
+        out = (y if t.rows is None else _gather_add_rows(out, t.inv, y)
+               if t.inv is not None else _scatter_add_rows(out, t.rows, y))
+        if keep:
+            kept.append(xt)
+        centre = xt = y = None
+    return out, tuple(kept)
+
+
+def _dw_tiers(centre, gathered, tiers, g, k_taps: int = 27):
+    """K2 over a slot plan: each tier's weight gradient from its gathered
+    rows and the output gradient at its rows (tier 1: g itself, with the
+    centre), summed left to right in tier order."""
+    d_weight = None
+    for t, xt in zip(tiers, gathered):
+        gt = g if t.rows is None else slot_gather(g, t.rows)  # (Vt, Co)
+        dw = slot_conv_dw(centre if t.rows is None else None, xt, t.tap, gt,
+                          k_taps=k_taps)
+        d_weight = dw if d_weight is None else d_weight + dw
+    return d_weight
+
+
 # ---------------------------------------------------------------------------
 # submanifold 3x3x3
 # ---------------------------------------------------------------------------
 
-class _SubmSlots3(torch.autograd.Function):
-    """3-tier slot form (`_subm_apply_slots3`; backward `_subm_slots3_bwd`)."""
+class _SubmSlots(torch.autograd.Function):
+    """Slot form over the level's 1, 2 or 3 tiers (`_subm_apply_slots`,
+    `_subm_apply_slots2`, `_subm_apply_slots3`; backward `_subm_slots_bwd`,
+    `_subm_slots2_bwd`, `_subm_slots3_bwd`)."""
 
     @staticmethod
     def forward(ctx, feats, weight, level: GridLevel):
+        tiers = level.slot_tiers()
         xc = _masked(feats, level.valid)
-        x1 = slot_gather(feats, level.slot_src)  # (h1, V, Ci)
-        out = slot_conv_apply(xc, x1, level.slot_tap, weight)
-        xm = slot_gather(feats, level.slot_srcm)  # (Hm, Vm, Ci)
-        out = _gather_add_rows(out, level.slot_invm,
-                               slot_conv_apply(None, xm, level.slot_tapm, weight))
-        xh = slot_gather(feats, level.slot_src2)  # (Hh, Vh, Ci)
-        out = _scatter_add_rows(out, level.slot_idx,
-                                slot_conv_apply(None, xh, level.slot_tap2, weight))
+        out, gathered = _apply_tiers(xc, feats, tiers, weight)
         ctx.save_for_backward(weight)
-        ctx.res = (xc, x1, xm, xh, level)
+        ctx.res = (xc, gathered, level)
         return out
 
     @staticmethod
     def backward(ctx, g):
         (weight,) = ctx.saved_tensors
-        xc, x1, xm, xh, lev = ctx.res
+        xc, gathered, lev = ctx.res
+        tiers = lev.slot_tiers()
+        if _DEBUG_DROP_COMPACT_TIERS_BWD and len(tiers) == 3:
+            tiers = tiers[:1]
         g = g.to(xc.dtype).contiguous()  # a slice when the output was concatenated
-        w_flip = _flip(weight)
-        d_feats = slot_conv_apply(_masked(g, lev.valid), slot_gather(g, lev.slot_src),
-                                  lev.slot_tap, w_flip)
-        d_weight = slot_conv_dw(xc, x1, lev.slot_tap, g)
-        if not _DEBUG_DROP_COMPACT_TIERS_BWD:
-            d_feats = _gather_add_rows(d_feats, lev.slot_invm, slot_conv_apply(
-                None, slot_gather(g, lev.slot_srcm), lev.slot_tapm, w_flip))
-            d_feats = _scatter_add_rows(d_feats, lev.slot_idx, slot_conv_apply(
-                None, slot_gather(g, lev.slot_src2), lev.slot_tap2, w_flip))
-            g_m = slot_gather(g, lev.slot_idxm)  # (Vm, Co)
-            g_h = slot_gather(g, lev.slot_idx)  # (Vh, Co)
-            d_weight = (d_weight + slot_conv_dw(None, xm, lev.slot_tapm, g_m)
-                        + slot_conv_dw(None, xh, lev.slot_tap2, g_h))
-        return d_feats.to(xc.dtype), d_weight.to(weight.dtype), None
-
-
-class _SubmSlots2(torch.autograd.Function):
-    """2-tier slot form (`_subm_apply_slots2`; backward `_subm_slots2_bwd`)."""
-
-    @staticmethod
-    def forward(ctx, feats, weight, level: GridLevel):
-        xc = _masked(feats, level.valid)
-        x1 = slot_gather(feats, level.slot_src)  # (h_lo, V, Ci)
-        out = slot_conv_apply(xc, x1, level.slot_tap, weight)
-        x2 = slot_gather(feats, level.slot_src2)  # (H2, Vh, Ci)
-        out = _scatter_add_rows(out, level.slot_idx,
-                                slot_conv_apply(None, x2, level.slot_tap2, weight))
-        ctx.save_for_backward(weight)
-        ctx.res = (xc, x1, x2, level)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        (weight,) = ctx.saved_tensors
-        xc, x1, x2, lev = ctx.res
-        g = g.to(xc.dtype).contiguous()  # a slice when the output was concatenated
-        w_flip = _flip(weight)
-        d_feats = slot_conv_apply(_masked(g, lev.valid), slot_gather(g, lev.slot_src),
-                                  lev.slot_tap, w_flip)
-        d2 = slot_conv_apply(None, slot_gather(g, lev.slot_src2), lev.slot_tap2,
-                             w_flip)  # (Vh, Ci)
-        d_feats = _scatter_add_rows(d_feats, lev.slot_idx, d2)
-        g_hi = slot_gather(g, lev.slot_idx)  # (Vh, Co)
-        d_weight = (slot_conv_dw(xc, x1, lev.slot_tap, g)
-                    + slot_conv_dw(None, x2, lev.slot_tap2, g_hi))
-        return d_feats.to(xc.dtype), d_weight.to(weight.dtype), None
-
-
-class _SubmSlots1(torch.autograd.Function):
-    """1-tier slot form (`_subm_apply_slots`; backward `_subm_slots_bwd`)."""
-
-    @staticmethod
-    def forward(ctx, feats, weight, level: GridLevel):
-        xc = _masked(feats, level.valid)
-        x1 = slot_gather(feats, level.slot_src)  # (H, V, Ci)
-        ctx.save_for_backward(weight)
-        ctx.res = (xc, x1, level)
-        return slot_conv_apply(xc, x1, level.slot_tap, weight)
-
-    @staticmethod
-    def backward(ctx, g):
-        (weight,) = ctx.saved_tensors
-        xc, x1, lev = ctx.res
-        g = g.to(xc.dtype).contiguous()  # a slice when the output was concatenated
-        d_feats = slot_conv_apply(_masked(g, lev.valid), slot_gather(g, lev.slot_src),
-                                  lev.slot_tap, _flip(weight))
-        d_weight = slot_conv_dw(xc, x1, lev.slot_tap, g)
+        d_feats, _ = _apply_tiers(_masked(g, lev.valid), g, tiers, _flip(weight),
+                                  keep=False)
+        d_weight = _dw_tiers(xc, gathered, tiers, g)
         return d_feats.to(xc.dtype), d_weight.to(weight.dtype), None
 
 
@@ -211,11 +184,9 @@ def subm_conv3(feats: torch.Tensor, level: GridLevel, weight: torch.Tensor,
     order -> (V, Cout) fp32."""
     feats = feats.to(compute_dtype)
     weight = weight.to(compute_dtype).contiguous()
-    if level.slot_src is None:
+    if not level.slot_tiers():
         return _SubmDense.apply(feats, weight, level.nbr)
-    fn = (_SubmSlots3 if level.slot_srcm is not None
-          else _SubmSlots2 if level.slot_src2 is not None else _SubmSlots1)
-    return fn.apply(feats, weight, level)
+    return _SubmSlots.apply(feats, weight, level)
 
 
 def subm_conv5(feats: torch.Tensor, level: GridLevel, weight: torch.Tensor,
@@ -323,27 +294,22 @@ class _DownSlots(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, fine, weight, trans: LevelTransition):
-        x1 = slot_gather(fine, trans.cslot_src)  # (h_lo, Vc, Ci)
-        out = slot_conv_apply(None, x1, trans.cslot_tap, weight)
-        x2 = slot_gather(fine, trans.cslot_src2)  # (8 - h_lo, Vh, Ci)
-        out = _scatter_add_rows(out, trans.cslot_idx, slot_conv_apply(
-            None, x2, trans.cslot_tap2, weight))
+        out, gathered = _apply_tiers(None, fine, trans.child_tiers(), weight)
         ctx.save_for_backward(weight)
-        ctx.res = (x1, x2, trans)
+        ctx.res = (gathered, trans)
         return out
 
     @staticmethod
     def backward(ctx, g):
         (weight,) = ctx.saved_tensors
-        x1, x2, trans = ctx.res
-        g = g.to(x1.dtype).contiguous()
+        gathered, trans = ctx.res
+        dtype = gathered[0].dtype
+        g = g.to(dtype).contiguous()
         # transpose of down conv = deconv through (parent, off_id), as dense
         d_fine = _up_apply_raw(g, weight.transpose(1, 2).contiguous(),
                                trans.parent, trans.off_id)
-        g_hi = slot_gather(g, trans.cslot_idx)  # (Vh, Co)
-        d_weight = (slot_conv_dw(None, x1, trans.cslot_tap, g, k_taps=8)
-                    + slot_conv_dw(None, x2, trans.cslot_tap2, g_hi, k_taps=8))
-        return d_fine.to(x1.dtype), d_weight.to(weight.dtype), None
+        d_weight = _dw_tiers(None, gathered, trans.child_tiers(), g, k_taps=8)
+        return d_fine.to(dtype), d_weight.to(weight.dtype), None
 
 
 class _UpSlots(_Up):
@@ -357,11 +323,8 @@ class _UpSlots(_Up):
         trans = ctx.trans
         g = g.to(coarse.dtype).contiguous()
         # transpose of deconv = down conv through the child slots
-        w_t = weight.transpose(1, 2).contiguous()
-        d_coarse = slot_conv_apply(None, slot_gather(g, trans.cslot_src),
-                                   trans.cslot_tap, w_t)
-        d_coarse = _scatter_add_rows(d_coarse, trans.cslot_idx, slot_conv_apply(
-            None, slot_gather(g, trans.cslot_src2), trans.cslot_tap2, w_t))
+        d_coarse, _ = _apply_tiers(None, g, trans.child_tiers(),
+                                   weight.transpose(1, 2).contiguous(), keep=False)
         gp = slot_gather(coarse, trans.parent)
         d_weight = _down_dw(gp, trans.off_id, g)
         return d_coarse.to(coarse.dtype), d_weight.to(weight.dtype), None
@@ -374,12 +337,10 @@ def down_conv2(fine_feats: torch.Tensor, trans: LevelTransition,
 
     out[c] = sum over children f of c of fine[f] @ weight[off_id[f]];
     weight (8, Cin, Cout) in `hierarchy.OFFSETS_8` order.  Over the child
-    slots where the transition has them (`trans.cslot_src`)."""
-    if trans.cslot_src is not None:
-        return _DownSlots.apply(fine_feats.to(compute_dtype),
-                                weight.to(compute_dtype).contiguous(), trans)
-    return _Down.apply(fine_feats.to(compute_dtype),
-                       weight.to(compute_dtype).contiguous(), trans)
+    slots where the transition has them (`trans.child_tiers()`)."""
+    fn = _DownSlots if trans.child_tiers() else _Down
+    return fn.apply(fine_feats.to(compute_dtype),
+                    weight.to(compute_dtype).contiguous(), trans)
 
 
 def up_conv2(coarse_feats: torch.Tensor, trans: LevelTransition,
@@ -388,8 +349,8 @@ def up_conv2(coarse_feats: torch.Tensor, trans: LevelTransition,
     """Transposed stride-2 convolution back onto the fine site set:
     out[f] = coarse[parent[f]] @ weight[off_id[f]] (dumped parents -> 0);
     the input gradient runs over the child slots where the transition has
-    them (`trans.cslot_src`)."""
-    fn = _UpSlots if trans.cslot_src is not None else _Up
+    them (`trans.child_tiers()`)."""
+    fn = _UpSlots if trans.child_tiers() else _Up
     return fn.apply(coarse_feats.to(compute_dtype),
                     weight.to(compute_dtype).contiguous(), trans)
 

@@ -15,8 +15,9 @@ H100; the JAX package's CHECKS.json is the TPU's):
 - the first loss within 2% (the forward before any update);
 - the mean of the last 5 within 5%;
 - every step within the per-step gate, the sensitive one: the fault that
-  `--mutate` injects (the submanifold convs' backward without their mid
-  and heavy tiers, `ops.spconv._DEBUG_DROP_COMPACT_TIERS_BWD`; the forward
+  `--mutate` injects (the backward of every submanifold conv at a 3-tier
+  level over tier 1 alone, its mid and heavy tiers dropped from both
+  gradients, `ops.spconv._DEBUG_DROP_COMPACT_TIERS_BWD`; the forward
   exact) moves the middle of the trajectory more than its end, because
   the optimizers re-converge around small gradient errors.
 

@@ -79,8 +79,19 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(samples)
 
 
+def no_launches() -> dict:
+    """Every registered kernel at zero launches: the base of each
+    prediction, so a new kernel is predicted never to launch until a
+    prediction says otherwise."""
+    from mm2d3d_tpu_torch.ops.kernels import all_kernels
+
+    return dict.fromkeys(all_kernels(), 0)
+
+
 def tiers(level) -> int:
-    return 3 if level.slot_srcm is not None else (2 if level.slot_src2 is not None else 1)
+    """K1 launches of one submanifold conv at `level`: one a tier of its slot
+    plan, none on the dense path."""
+    return len(level.slot_tiers())
 
 
 def _launched(*tables) -> int:
@@ -89,42 +100,50 @@ def _launched(*tables) -> int:
     return sum(t.numel() > 0 for t in tables)
 
 
+def _apply_tables(plan) -> list:
+    """The id tables `ops/spconv.py::_apply_tiers` gathers by over a slot
+    plan: each tier's sources, and the inverse map of a tier merged by a
+    gather."""
+    return [t for tier in plan for t in (tier.src, tier.inv) if t is not None]
+
+
+def _row_tables(plan) -> list:
+    """The id tables `_dw_tiers` gathers the output gradient by: each
+    compacted tier's rows."""
+    return [tier.rows for tier in plan if tier.rows is not None]
+
+
 def subm_gathers(level, mutate: bool = False) -> tuple:
     """(forward, backward) slot-gather launches of one submanifold 3^3 conv
-    at `level`: one per id table `ops/spconv.py` gathers by, in each tier
-    form (the dense form: the 27-neighbour table once each way); `mutate`:
-    the learning check's fault, a 3-tier backward without its mid and heavy
-    tiers."""
-    if level.slot_src is None:
+    at `level`: the forward's and the input gradient's over its slot plan,
+    the weight gradient's at the compacted tiers' rows (the dense form: the
+    27-neighbour table once each way); `mutate`: the learning check's
+    fault, a 3-tier backward without its mid and heavy tiers."""
+    plan = level.slot_tiers()
+    if not plan:
         return _launched(level.nbr), _launched(level.nbr)
-    if level.slot_srcm is not None:
-        fwd = (level.slot_src, level.slot_srcm, level.slot_invm, level.slot_src2)
-        bwd = ((level.slot_src,) if mutate else
-               (level.slot_src, level.slot_invm, level.slot_srcm, level.slot_src2,
-                level.slot_idxm, level.slot_idx))
-    elif level.slot_src2 is not None:
-        fwd = (level.slot_src, level.slot_src2)
-        bwd = (level.slot_src, level.slot_src2, level.slot_idx)
-    else:
-        fwd = bwd = (level.slot_src,)
-    return _launched(*fwd), _launched(*bwd)
+    bwd = plan[:1] if mutate and len(plan) == 3 else plan
+    return (_launched(*_apply_tables(plan)),
+            _launched(*_apply_tables(bwd), *_row_tables(bwd)))
 
 
 def down_gathers(trans) -> tuple:
     """(forward, backward) slot gathers of one stride-2 down conv: over the
-    child slots, or the child table and the parents (input gradient and
-    weight gradient) without them."""
-    if trans.cslot_src is not None:
-        return (_launched(trans.cslot_src, trans.cslot_src2),
-                _launched(trans.parent, trans.cslot_idx))
+    child slots (the input gradient by the parents), or the child table and
+    the parents (input gradient and weight gradient) without them."""
+    plan = trans.child_tiers()
+    if plan:
+        return (_launched(*_apply_tables(plan)),
+                _launched(trans.parent, *_row_tables(plan)))
     return _launched(trans.child), _launched(trans.parent, trans.parent)
 
 
 def up_gathers(trans) -> tuple:
     """(forward, backward) slot gathers of one stride-2 transposed conv."""
-    if trans.cslot_src is not None:
+    plan = trans.child_tiers()
+    if plan:
         return (_launched(trans.parent),
-                _launched(trans.cslot_src, trans.cslot_src2, trans.parent))
+                _launched(*_apply_tables(plan), trans.parent))
     return _launched(trans.parent), _launched(trans.child, trans.parent)
 
 
@@ -161,51 +180,56 @@ def minkunet_gathers(hier) -> tuple:
     return _sum_pairs(pairs)
 
 
-def expected_launches(hier, residual: bool = False) -> dict:
+def expected_launches(hier, residual: bool = False, fused_head: bool = False) -> dict:
     """Kernel launches of one forward, from the hierarchy: K3 at every level
-    but the coarsest, K4 once per encoder, K1 once per tier of every
-    submanifold conv (input conv, encoder and decoder blocks, two per
-    block with `residual`) plus once per strided conv, and once more for
-    a down conv over child slots (its heavy tier); the slot gathers as
-    `scn_gathers`; the probe kernels never."""
+    but the coarsest, K4 once per encoder, K5 once with `fused_head`; per
+    submanifold conv (input conv, encoder and decoder blocks, two per block
+    with `residual`) K1 once per tier of its level's slot plan, or K6 once
+    on a level without one; K1 once per up conv, and per down conv once
+    per tier of its child slots' plan or once without one; the slot gathers
+    as `scn_gathers`; every other kernel never."""
     lv = hier.levels
-    n = len(lv)
-    blocks = sum(tiers(l) for l in lv) + sum(tiers(l) for l in lv[:-1])
-    k1 = tiers(lv[0]) + (2 if residual else 1) * blocks
-    k1 += sum(3 if t.cslot_src is not None else 2 for t in hier.transitions)
-    return {"propagate": n - 1, "maxpool": 2, "bandmm": k1, "bandmm_dw": 0,
-            "head2d": 0, "tapsum": 0, "batchnorm2d": 0,
-            "slot_gather": scn_gathers(hier, residual)[0],
-            **dict.fromkeys(PROBE_KERNELS, 0)}
+    convs = [lv[0]] + (2 if residual else 1) * (list(lv) + list(lv[:-1]))
+    return {**no_launches(), "propagate": len(lv) - 1, "maxpool": 2,
+            "head2d": int(fused_head),
+            "tapsum": sum(not l.slot_tiers() for l in convs),
+            "bandmm": sum(tiers(l) for l in convs) + sum(
+                (len(t.child_tiers()) or 1) + 1 for t in hier.transitions),
+            "slot_gather": scn_gathers(hier, residual)[0]}
 
 
-def expected_train_launches(hiers, residual: bool = False,
-                            host_built: bool = False, frozen_bn: bool = False) -> dict:
+def expected_train_launches(hiers, residual: bool = False, host_built: bool = False,
+                            frozen_bn: bool = False, fused_head: bool = False) -> dict:
     """Kernel launches of one train step, from the two domains' hierarchies:
-    per domain, K1 twice per eval-forward launch (forward and input
-    gradient), K2 once per eval-forward K1 launch (weight gradient), K3 per
-    topology (none for topologies built on the host), K4 per encoder as
-    in the forward (the pool's backward is PyTorch's), the BatchNorm
-    kernels four times per train-form BatchNorm2d of the 2D forward (fewer
-    with `frozen_bn`) and the slot gathers of the forward and the backward
-    (`scn_gathers`).  Over child slots
-    the count holds too: the down conv's two K1 and two K2 calls, the up
-    conv's input gradient's two K1 calls."""
-    out = {"bandmm": 0, "bandmm_dw": 0, "propagate": 0, "maxpool": 0, "head2d": 0,
-           "tapsum": 0, "batchnorm2d": 0, "slot_gather": 0,
-           **dict.fromkeys(PROBE_KERNELS, 0)}
+    per domain, K1 and K6 twice per eval-forward launch (forward and input
+    gradient), K2 once per eval-forward K1 launch (weight gradient; the
+    dense convs' is a plain product), K3 per topology (none for topologies
+    built on the host), K4 and K5 per encoder and head as in the forward
+    (their backwards are PyTorch's), the BatchNorm kernels four times per
+    train-form BatchNorm2d of the 2D forward (fewer with `frozen_bn`) and
+    the slot gathers of the forward and the backward (`scn_gathers`).  Over
+    child slots the count holds too: the down conv's two K1 and two K2
+    calls, the up conv's input gradient's two K1 calls."""
     from mm2d3d_tpu_torch.ops.kernels.batchnorm2d import LAUNCHES_PER_CALL
 
+    out = no_launches()
     bn = LAUNCHES_PER_CALL * (BN2D_PER_FORWARD - (BN2D_FROZEN if frozen_bn else 0))
     for hier in hiers:
-        ev = expected_launches(hier, residual)
+        ev = expected_launches(hier, residual, fused_head)
         out["bandmm"] += 2 * ev["bandmm"]
         out["bandmm_dw"] += ev["bandmm"]
+        out["tapsum"] += 2 * ev["tapsum"]
         out["propagate"] += 0 if host_built else ev["propagate"]
         out["maxpool"] += ev["maxpool"]
+        out["head2d"] += ev["head2d"]
         out["batchnorm2d"] += bn
         out["slot_gather"] += sum(scn_gathers(hier, residual))
     return out
+
+
+def _tier_label(tier) -> str:
+    return ("tier1+center" if tier.rows is None else "mid tier" if tier.inv is not None
+            else "heavy tier")
 
 
 def _hierarchy(dev, kitti: bool = False):
@@ -236,15 +260,10 @@ def k1_forms(dev, seed: int = 1, kitti: bool = False):
         x = torch.cat([rnd(v, ci), torch.zeros((1, ci), device=dev)])
         w = rnd(27, ci, co) * 0.1
         xm = torch.where(lev.valid[:, None], x[:v], 0)
-        forms = [(f"{name} tier1+center H={lev.slot_src.shape[0]}",
-                  (xm, x[lev.slot_src.long()], lev.slot_tap, w))]
-        if every_tier and lev.slot_srcm is not None:
-            forms.append((f"{name} mid tier H={lev.slot_srcm.shape[0]}",
-                          (None, x[lev.slot_srcm.long()], lev.slot_tapm, w)))
-        if every_tier and lev.slot_src2 is not None:
-            forms.append((f"{name} heavy tier H={lev.slot_src2.shape[0]}",
-                          (None, x[lev.slot_src2.long()], lev.slot_tap2, w)))
-        return forms
+        plan = lev.slot_tiers() if every_tier else lev.slot_tiers()[:1]
+        return [(f"{name} {_tier_label(t)} H={t.src.shape[0]}",
+                 (xm if t.rows is None else None, x[t.src.long()], t.tap, w))
+                for t in plan]
 
     def strided(l, ci, co, up=False):
         off_id = hier.transitions[l].off_id
@@ -283,17 +302,11 @@ def k2_forms(dev, seed: int = 2, kitti: bool = False):
         x = torch.cat([rnd(v, ci), torch.zeros((1, ci), device=dev)])
         g = rnd(v, co)
         xm = torch.where(lev.valid[:, None], x[:v], 0)
-        forms = [(f"{name} tier1+center H={lev.slot_src.shape[0]}",
-                  (xm, x[lev.slot_src.long()], lev.slot_tap, g), 27)]
-        if every_tier and lev.slot_srcm is not None:
-            forms.append((f"{name} mid tier H={lev.slot_srcm.shape[0]}",
-                          (None, x[lev.slot_srcm.long()], lev.slot_tapm,
-                           rows(g, lev.slot_idxm)), 27))
-        if every_tier and lev.slot_src2 is not None:
-            forms.append((f"{name} heavy tier H={lev.slot_src2.shape[0]}",
-                          (None, x[lev.slot_src2.long()], lev.slot_tap2,
-                           rows(g, lev.slot_idx)), 27))
-        return forms
+        plan = lev.slot_tiers() if every_tier else lev.slot_tiers()[:1]
+        return [(f"{name} {_tier_label(t)} H={t.src.shape[0]}",
+                 (xm if t.rows is None else None, x[t.src.long()], t.tap,
+                  g if t.rows is None else rows(g, t.rows)), 27)
+                for t in plan]
 
     def strided(l, ci, co, up=False):
         off_id = hier.transitions[l].off_id
@@ -335,11 +348,11 @@ def child_slot_forms(dev, seed: int = 3):
         x = torch.cat([rnd(vf, ci), torch.zeros((1, ci), device=dev)])
         g = torch.cat([rnd(vc, co), torch.zeros((1, co), device=dev)])
         w = rnd(8, ci, co) * 0.1
-        for tier, src, tap, rows in (("tier1", t.cslot_src, t.cslot_tap, None),
-                                     ("heavy", t.cslot_src2, t.cslot_tap2, t.cslot_idx)):
-            gt = g[:vc] if rows is None else g[rows.long()]
-            forms.append((f"child slots down L{l}->L{l + 1} {tier} K=8 H={src.shape[0]} "
-                          f"{ci}->{co}", (x[src.long()], tap, w, gt), 8))
+        for label, tier in zip(("tier1", "heavy"), t.child_tiers()):
+            gt = g[:vc] if tier.rows is None else g[tier.rows.long()]
+            forms.append((f"child slots down L{l}->L{l + 1} {label} K=8 "
+                          f"H={tier.src.shape[0]} {ci}->{co}",
+                          (x[tier.src.long()], tier.tap, w, gt), 8))
     return forms
 
 

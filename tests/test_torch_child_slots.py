@@ -1,6 +1,7 @@
 """The child-slot form of the strided convolutions (`ops.hierarchy
-.build_child_slots`, `ops.spconv._DownSlots` / `_UpSlots`) against the JAX
-package's, fp32 on the CPU.
+.build_child_slots`; `ops.spconv._DownSlots` / `_UpSlots`, which apply
+`LevelTransition.child_tiers()` through the submanifold conv's
+`_apply_tiers` / `_dw_tiers`) against the JAX package's, fp32 on the CPU.
 
 - The child slot tables of `build_hierarchy(child_slot_caps=)` bit-equal to
   JAX's, for "default" and per-transition specs, one of whose heavy tiers
