@@ -519,17 +519,21 @@ def check_bn(res: Results, dev) -> None:
     rounding band); the error is the worst output's share of its tolerance.
     Timed: the four passes without autograd.  The yardstick is cuDNN's
     train-form `F.batch_norm`, forward and backward, without the epilogue,
-    on a contiguous copy of x (the port never calls it)."""
+    on a contiguous copy of x (the port never calls it).  Then the masked
+    form at the 3D branches' level shapes (`kernel_cases.MASKED_BN_CASES`):
+    checked and timed alike, its plain version the eager masked form's ops
+    (no single PyTorch call takes a row mask)."""
     from mm2d3d_tpu_torch.tools.kernel_cases import (
-        BN_CASES, bn_bytes, bn_check, bn_inputs, bn_passes)
+        BN_CASES, MASKED_BN_CASES, bn_bytes, bn_check, bn_inputs, bn_passes,
+        masked_bn_bytes, masked_bn_inputs)
 
     for name, case in BN_CASES.items():
         epi, y_dtype = case[2], case[4]
         inputs = bn_inputs(case, dev, seed=7)
         errs = bn_check(inputs, epi, y_dtype)
         # timed: the four passes alone, without autograd's bookkeeping
-        x, weight, bias, ident, rm, rv, dy = inputs
-        timed = (x, weight, bias, ident, rm.clone(), rv.clone(), dy)
+        x, weight, bias, ident, rm, rv, dy, _ = inputs
+        timed = (x, weight, bias, ident, rm.clone(), rv.clone(), dy, None)
         ms = cuda_ms(lambda: bn_passes(timed, epi, y_dtype), reps=10)
         plain = cuda_ms(lambda: bn_passes(timed, epi, y_dtype, plain=True), reps=5)
         xl = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
@@ -546,6 +550,20 @@ def check_bn(res: Results, dev) -> None:
                 f"(worst: {worst})", errs[worst], 1.0, ms, plain, bound(bn_bytes(case)),
                 lib_ms)
         del inputs, timed, x, xl, ident, dy
+
+    for name, case in MASKED_BN_CASES.items():
+        (v, c), share, epi, y_dtype, eps = case
+        inputs = masked_bn_inputs(case, dev, seed=7)
+        errs = bn_check(inputs, epi, y_dtype, eps)
+        x, weight, bias, ident, rm, rv, dy, valid = inputs
+        timed = (x, weight, bias, ident, rm.clone(), rv.clone(), dy, valid)
+        ms = cuda_ms(lambda: bn_passes(timed, epi, y_dtype, eps=eps), reps=10)
+        plain = cuda_ms(lambda: bn_passes(timed, epi, y_dtype, plain=True, eps=eps), reps=5)
+        worst = max(errs, key=errs.get)
+        res.add("batchnorm2d", f"masked {name} {share:.0%} valid {epi} float32->"
+                f"{str(y_dtype)[6:]} (worst: {worst})", errs[worst], 1.0, ms, plain,
+                bound(masked_bn_bytes(case)))
+        del inputs, timed, x, ident, dy, valid
 
 
 # --------------------------------------------------------------------------
@@ -833,7 +851,7 @@ def run_train(dev):
 # phase 7: card vs CPU, fp32, one train step at batch 2 per domain
 # --------------------------------------------------------------------------
 
-def compare_train_card_cpu(dev, optin: bool = False, seeds=(12, 13),
+def compare_train_card_cpu(dev, optin: bool = False, seeds=(20, 21),
                            child_slots: bool = False) -> None:
     """One fp32 train step on the card and on the CPU from the same weights
     and batches, dropout off.  Gradients are held per leaf against the
@@ -846,8 +864,12 @@ def compare_train_card_cpu(dev, optin: bool = False, seeds=(12, 13),
     at -2.8e-7 with the CPU's dense sums and +1.4e-6 with its slot sums,
     and that one kink moves a weight gradient by 2.3e-3 of the branch's
     largest.  The card's step sums in a fixed order, so it lands on one
-    side of the kink in every run; phase 9 (the dense sums) takes `seeds`
-    20/21, where no kink lies within the card's reach (PERF.md, Findings)."""
+    side of the kink in every run, which side set by the last bits of the
+    masked BatchNorm's statistics: the CPU's side until that BatchNorm ran
+    on the card's kernels; since, the other (`out_bn`'s input at 8.7e-7,
+    and one of `dec_4_0.bn` at 4.8e-6, the only ReLU decisions card and
+    CPU take apart).  Every phase takes `seeds` 20/21, where no ReLU
+    decision differs (PERF.md, Findings)."""
     tasks = {}
     for d in (dev, torch.device("cpu")):
         t = make_task(d, optin)

@@ -81,10 +81,10 @@ class BasicBlock(nn.Module):
                            else None)
 
     def forward(self, x: torch.Tensor, level: GridLevel) -> torch.Tensor:
-        y = torch.relu(self.norm1(self.conv1(x, level), level.valid))
-        y = self.norm2(self.conv2(y, level), level.valid)
+        y = self.norm1(self.conv1(x, level), level.valid, relu=True,
+                       out_dtype=self.conv2.compute_dtype)
         shortcut = x if self.downsample is None else self.downsample(x, level.valid)
-        return torch.relu(y + shortcut)
+        return self.norm2(self.conv2(y, level), level.valid, relu=True, identity=shortcut)
 
 
 def _stage(cin: int, cout: int, blocks: int, compute_dtype) -> nn.ModuleList:
@@ -119,18 +119,18 @@ class MinkUNet34C(nn.Module):
     def forward(self, x: torch.Tensor, hier: Hierarchy) -> torch.Tensor:
         lv, tr = hier.levels, hier.transitions
         m = dict(self.named_children())
-        out = torch.relu(self.bn0(self.conv0p1s1(x, lv[0]), lv[0].valid))
+        out = self.bn0(self.conv0p1s1(x, lv[0]), lv[0].valid, relu=True)
         skips: List[torch.Tensor] = [out]
         for i in range(4):
             out = m[f"conv{i + 1}p{1 << i}s2"](out, tr[i])
-            out = torch.relu(m[f"bn{i + 1}"](out, lv[i + 1].valid))
+            out = m[f"bn{i + 1}"](out, lv[i + 1].valid, relu=True)
             for block in m[f"block{i + 1}"]:
                 out = block(out, lv[i + 1])
             skips.append(out)
         for j in range(4):
             level = 3 - j
             out = m[f"convtr{4 + j}p{16 >> j}s2"](out, tr[level])
-            out = torch.relu(m[f"bntr{4 + j}"](out, lv[level].valid))
+            out = m[f"bntr{4 + j}"](out, lv[level].valid, relu=True)
             out = torch.cat([out, skips[level]], dim=-1)
             for block in m[f"block{5 + j}"]:
                 out = block(out, lv[level])

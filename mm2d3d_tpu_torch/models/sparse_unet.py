@@ -6,7 +6,9 @@ Module and parameter names follow the flax tree (`net_3d.unet.enc_0_0.conv`,
 kernels keep the JAX layout (K, Cin, Cout).  Convolutions run in
 `compute_dtype` and return fp32.  Batch norms take the statistics of the
 valid rows in train mode (`nn.Module.train()`) and their running statistics
-in eval mode.  With `residual_blocks` the U-Net's blocks are SCN residual
+in eval mode, and apply the ReLU (or residual add and ReLU) after them
+themselves; a batch norm whose only reader is a convolution writes the
+convolution's compute dtype, which it would cast to at once.  With `residual_blocks` the U-Net's blocks are SCN residual
 blocks (`ResidualBlock`) instead of VGG blocks.  `GatedTrunk` is the branch
 around any sparse trunk (gate, pool, unpool, heads), which `Net3DSeg` and
 `models.minkunet.MinkUNet34CSeg` share.
@@ -14,24 +16,32 @@ around any sparse trunk (gate, pool, unpool, heads), which `Net3DSeg` and
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.hierarchy import GridLevel, Hierarchy, LevelTransition
-from ..ops.spconv import (
-    down_conv2, masked_batch_norm_stats, subm_conv3, subm_conv5, up_conv2,
-)
+from ..ops.kernels.batchnorm2d import BatchNormTrain
+from ..ops.spconv import down_conv2, subm_conv3, subm_conv5, up_conv2
 from ..ops.voxelize import VoxelGrid, pool_features, unpool_features
+from .resnet2d import epilogue
 
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over the valid rows only (eps 1e-4 unless given).  Train
-    mode: the biased mean and variance of the valid rows, differentiable,
-    and the running statistics move to 0.9 old + 0.1 batch; eval mode: the
-    running statistics.  Returns the input's dtype, as the flax module
-    does."""
+    mode: the biased mean and variance of the valid rows, and the running
+    statistics move to 0.9 old + 0.1 batch; eval mode: the running
+    statistics.
+
+    `forward(x, valid, relu, identity, out_dtype)` also applies the caller's
+    epilogue: nothing, ReLU(y), or ReLU(y + identity).  In train mode all of
+    it is `BatchNormTrain` with the row mask (the kernels on a CUDA tensor;
+    on a CPU one the eager masked form's ops, then the epilogue's, with an
+    analytic backward), which writes `out_dtype`: fp32, or the compute
+    dtype where a convolution, which casts to it anyway, is the only
+    reader.  Eval mode runs the same ops as before and returns the input's
+    dtype, as the flax module does."""
 
     momentum = 0.9  # flax's: running = 0.9 old + 0.1 batch
 
@@ -43,16 +53,15 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid: torch.Tensor, relu: bool = False,
+                identity: Optional[torch.Tensor] = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         if self.training:
-            mean, var = masked_batch_norm_stats(x, valid)
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
-                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        y = (x.float() - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+            return BatchNormTrain.apply(x, self.weight, self.bias, identity,
+                                        self.running_mean, self.running_var, relu,
+                                        out_dtype, self.eps, self.momentum, valid)
+        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        return epilogue((y * self.weight + self.bias).to(x.dtype), relu, identity)
 
 
 class SubmConv(nn.Module):
@@ -116,7 +125,8 @@ class VGGBlock(nn.Module):
         self.conv = SubmConv(cin, cout, compute_dtype)
 
     def forward(self, x: torch.Tensor, level: GridLevel) -> torch.Tensor:
-        return self.conv(torch.relu(self.bn(x, level.valid)), level)
+        return self.conv(self.bn(x, level.valid, relu=True,
+                                 out_dtype=self.conv.compute_dtype), level)
 
 
 class ResidualBlock(nn.Module):
@@ -137,8 +147,10 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, level: GridLevel) -> torch.Tensor:
         shortcut = x if self.nin_kernel is None else x @ self.nin_kernel
-        y = self.conv1(torch.relu(self.bn1(x, level.valid)), level)
-        y = self.conv2(torch.relu(self.bn2(y, level.valid)), level)
+        y = self.conv1(self.bn1(x, level.valid, relu=True,
+                                out_dtype=self.conv1.compute_dtype), level)
+        y = self.conv2(self.bn2(y, level.valid, relu=True,
+                                out_dtype=self.conv2.compute_dtype), level)
         return shortcut + y
 
 
@@ -151,6 +163,7 @@ class SparseUNet(nn.Module):
         super().__init__()
         self.planes = list(planes)
         self.reps = reps
+        self.compute_dtype = compute_dtype
         block = ResidualBlock if residual else VGGBlock
         n = len(planes)
         for l in range(n):
@@ -174,14 +187,16 @@ class SparseUNet(nn.Module):
         enc = []
         for l in range(n):
             if l > 0:
-                y = torch.relu(m[f"down_bn_{l}"](x, hier.levels[l - 1].valid))
+                y = m[f"down_bn_{l}"](x, hier.levels[l - 1].valid, relu=True,
+                                      out_dtype=self.compute_dtype)
                 x = m[f"down_{l}"](y, hier.transitions[l - 1])
             for r in range(self.reps):
                 x = m[f"enc_{l}_{r}"](x, hier.levels[l])
             enc.append(x)
         x = enc[-1]
         for l in range(n - 2, -1, -1):
-            y = torch.relu(m[f"up_bn_{l}"](x, hier.levels[l + 1].valid))
+            y = m[f"up_bn_{l}"](x, hier.levels[l + 1].valid, relu=True,
+                                out_dtype=self.compute_dtype)
             up = m[f"up_{l}"](y, hier.transitions[l])
             x = torch.cat([enc[l], up], dim=-1)
             for r in range(self.reps):
@@ -205,7 +220,7 @@ class UNetSCN3D(nn.Module):
     def forward(self, voxel_feats: torch.Tensor, hier: Hierarchy) -> torch.Tensor:
         x = self.input_conv(voxel_feats, hier.levels[0])
         x = self.unet(x, hier)
-        return torch.relu(self.out_bn(x, hier.levels[0].valid))
+        return self.out_bn(x, hier.levels[0].valid, relu=True)
 
 
 class GatedTrunk(nn.Module):

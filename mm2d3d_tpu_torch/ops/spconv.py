@@ -354,17 +354,3 @@ def up_conv2(coarse_feats: torch.Tensor, trans: LevelTransition,
     return fn.apply(coarse_feats.to(compute_dtype),
                     weight.to(compute_dtype).contiguous(), trans)
 
-
-# ---------------------------------------------------------------------------
-# misc
-# ---------------------------------------------------------------------------
-
-def masked_batch_norm_stats(feats: torch.Tensor, valid: torch.Tensor):
-    """fp32 (mean, biased var) of shape (C,) over the valid rows only (BN
-    over active sites, like scn.BatchNorm*); differentiable."""
-    f32 = feats.float()
-    m = valid[:, None].float()
-    n = torch.clamp(m.sum(), min=1.0)
-    mean = (f32 * m).sum(0) / n
-    var = ((f32 - mean).square() * m).sum(0) / n
-    return mean, var

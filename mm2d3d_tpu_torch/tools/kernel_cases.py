@@ -1,8 +1,10 @@
 """What `chip_smoke.py` and the kernel tools (`tools/slotconv_ab.py`,
 `tools/slotconv_tiles.py`, the probe tools) share: the flagship batch, the
 device timer, the kernel launches a hierarchy predicts (also for
-`tools/ddp_check.py`; the slot gathers' per convolution, for the SCN
-U-Net and MinkUNet34C), K1's and K2's call forms at the flagship's shapes,
+`tools/ddp_check.py`; the slot gathers' per convolution and the
+train-form BatchNorms per forward, for the SCN U-Net and MinkUNet34C), the
+BatchNorm kernels' call forms and checks (2D, and masked at the 3D
+branches' level shapes), K1's and K2's call forms at the flagship's shapes,
 at the KITTI-family configs' level-0 tiers (the dense slot profile, batch
 16 x 10,240 points), over the strided convs' child slots (K = 8, H = 3 and
 5) and at the tensor-core kernels' edges, and K9's and K10's at the TPU
@@ -15,6 +17,7 @@ package and give both trees the same inputs.
 
 from __future__ import annotations
 
+import functools
 import statistics
 
 import numpy as np
@@ -180,6 +183,38 @@ def minkunet_gathers(hier) -> tuple:
     return _sum_pairs(pairs)
 
 
+def _count_batch_norms(make) -> int:
+    """Train-form MaskedBatchNorms of the 3D trunk `make()` builds, each
+    called once a forward; built on the meta device, so no weight is
+    allocated."""
+    from mm2d3d_tpu_torch.models.sparse_unet import MaskedBatchNorm
+
+    with torch.device("meta"):
+        return sum(isinstance(m, MaskedBatchNorm) for m in make().modules())
+
+
+@functools.lru_cache(maxsize=None)
+def scn_batch_norms(num_planes: int, residual: bool = False) -> int:
+    """Train-form masked BatchNorms of one SCN U-Net forward (block_reps 1):
+    one a VGG block (two a residual block) in the encoder and decoder, one
+    before each down and up conv, `out_bn`; 26 for the 7-plane VGG form,
+    39 for the residual one."""
+    from mm2d3d_tpu_torch.models.sparse_unet import UNetSCN3D
+
+    return _count_batch_norms(lambda: UNetSCN3D(3, 16, 1, num_planes, torch.bfloat16,
+                                                residual))
+
+
+@functools.lru_cache(maxsize=None)
+def minkunet_batch_norms() -> int:
+    """Train-form masked BatchNorms of one MinkUNet34C forward: 62 (`bn0`,
+    `bn1`-`bn4`, `bntr4`-`bntr7`, two a BasicBlock, one a widening
+    shortcut)."""
+    from mm2d3d_tpu_torch.models.minkunet import MinkUNet34C
+
+    return _count_batch_norms(lambda: MinkUNet34C(3, torch.bfloat16))
+
+
 def expected_launches(hier, residual: bool = False, fused_head: bool = False) -> dict:
     """Kernel launches of one forward, from the hierarchy: K3 at every level
     but the coarsest, K4 once per encoder, K5 once with `fused_head`; per
@@ -207,7 +242,8 @@ def expected_train_launches(hiers, residual: bool = False, host_built: bool = Fa
     built on the host), K4 and K5 per encoder and head as in the forward
     (their backwards are PyTorch's), the BatchNorm kernels four times per
     train-form BatchNorm2d of the 2D forward (fewer with `frozen_bn`) and
-    the slot gathers of the forward and the backward (`scn_gathers`).  Over
+    per masked BatchNorm of the 3D forward (`scn_batch_norms`), and the slot
+    gathers of the forward and the backward (`scn_gathers`).  Over
     child slots the count holds too: the down conv's two K1 and two K2
     calls, the up conv's input gradient's two K1 calls."""
     from mm2d3d_tpu_torch.ops.kernels.batchnorm2d import LAUNCHES_PER_CALL
@@ -222,7 +258,8 @@ def expected_train_launches(hiers, residual: bool = False, host_built: bool = Fa
         out["propagate"] += 0 if host_built else ev["propagate"]
         out["maxpool"] += ev["maxpool"]
         out["head2d"] += ev["head2d"]
-        out["batchnorm2d"] += bn
+        out["batchnorm2d"] += bn + LAUNCHES_PER_CALL * scn_batch_norms(len(hier.levels),
+                                                                     residual)
         out["slot_gather"] += sum(scn_gathers(hier, residual))
     return out
 
@@ -489,12 +526,39 @@ BN_CASES = {
 }
 
 
+# The 3D branches' masked BatchNorm call forms: name -> ((V, C) of the level's
+# rows, the share of valid rows, epilogue, y's dtype, eps); x is the fp32
+# conv output, the rows the level's capacity in the KITTI train step
+# (16 x 10,240 points, the dense profile: levels 0-4 163,840, 112,640,
+# 71,680, 40,960, 20,480 rows) for MinkUNet34C (eps 1e-5) and in the
+# flagship's (16 x 8,192: 131,072, 81,920, 49,152, 32,768, 16,384, 8,192,
+# 4,096) for the SCN U-Net (eps 1e-4).  A y in bf16 is a BatchNorm whose
+# only reader is a convolution.
+MASKED_BN_CASES = {
+    "mink L0 bn0 (163840, 32)": ((163840, 32), 0.7, "relu", torch.float32, 1e-5),
+    "mink L0 block8 norm1 (163840, 96)": ((163840, 96), 0.7, "relu", torch.bfloat16, 1e-5),
+    "mink L0 block8 norm2 (163840, 96)": ((163840, 96), 0.7, "residual", torch.float32,
+                                          1e-5),
+    "mink L0 block8 shortcut (163840, 96)": ((163840, 96), 0.7, "none", torch.float32,
+                                             1e-5),
+    "mink L3 block5 norm2 (40960, 256)": ((40960, 256), 0.85, "residual", torch.float32,
+                                          1e-5),
+    "mink L4 block4 norm1 (20480, 256)": ((20480, 256), 0.95, "relu", torch.bfloat16, 1e-5),
+    "C 384 (40960, 384)": ((40960, 384), 0.5, "relu", torch.float32, 1e-5),
+    "scn L0 enc (131072, 16)": ((131072, 16), 0.6, "relu", torch.bfloat16, 1e-4),
+    "scn L0 out_bn (131072, 16)": ((131072, 16), 0.6, "relu", torch.float32, 1e-4),
+    "scn L1 dec concat (81920, 64)": ((81920, 64), 0.75, "relu", torch.bfloat16, 1e-4),
+    "scn L5 dec concat (8192, 192)": ((8192, 192), 0.9, "relu", torch.bfloat16, 1e-4),
+    "scn L6 enc (4096, 112)": ((4096, 112), 1.0, "relu", torch.bfloat16, 1e-4),
+}
+
+
 def bn_inputs(case, dev, seed: int = 0):
     """The inputs of one BatchNorm call form (a `BN_CASES` value): x (a
     channels_last view, a channel slice for the stems), weight, bias,
     identity (fp32, or None), running mean and variance, the output
-    gradient dy in y's dtype; channel means and scales spread as a conv's
-    output spreads them."""
+    gradient dy in y's dtype, and no row mask; channel means and scales
+    spread as a conv's output spreads them."""
     shape, (lo, hi), epi, x_dtype, y_dtype = case
     gen = torch.Generator(device=dev).manual_seed(seed)
     n, c_all, h, w = shape
@@ -509,10 +573,37 @@ def bn_inputs(case, dev, seed: int = 0):
     ident = (rnd(n, c, h, w).contiguous(memory_format=torch.channels_last)
              if epi == "residual" else None)
     dy = rnd(n, c, h, w).to(y_dtype).contiguous(memory_format=torch.channels_last)
-    return (x, 1 + 0.1 * rnd(c), 0.1 * rnd(c), ident, 0.1 * rnd(c), 1 + rnd(c).abs(), dy)
+    return (x, 1 + 0.1 * rnd(c), 0.1 * rnd(c), ident, 0.1 * rnd(c), 1 + rnd(c).abs(), dy,
+            None)
 
 
-def bn_passes(inputs, epi: str, y_dtype, plain: bool = False, bits=None) -> dict:
+def masked_bn_inputs(case, dev, seed: int = 0):
+    """`bn_inputs` of one masked call form (a `MASKED_BN_CASES` value): x
+    (V, C) fp32, the row mask (its share of the rows valid, scattered), and
+    at the invalid rows x and dy as they come (a conv writes 0 there, a
+    gradient need not)."""
+    (v, c), share, epi, y_dtype, _ = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    x = rnd(v, c) * (0.5 + rnd(c).abs()) + rnd(c)
+    valid = torch.rand(v, generator=gen, device=dev) < share
+    ident = rnd(v, c) if epi == "residual" else None
+    return (x, 1 + 0.1 * rnd(c), 0.1 * rnd(c), ident, 0.1 * rnd(c), 1 + rnd(c).abs(),
+            rnd(v, c).to(y_dtype), valid)
+
+
+def _bn_stats_ref(x, valid, weight, rm, rv, eps):
+    from mm2d3d_tpu_torch.ops.kernels import batchnorm2d as B
+
+    return (B.stats_ref(x, weight, rm, rv, eps, 0.9) if valid is None
+            else B.masked_stats_ref(x, valid, weight, rm, rv, eps, 0.9))
+
+
+def bn_passes(inputs, epi: str, y_dtype, plain: bool = False, bits=None,
+              eps: float = 1e-5) -> dict:
     """The four passes of one train-form BatchNorm, forward then backward,
     without autograd: the kernels' wrappers or, with `plain`, the plain
     versions, on the inputs' device; the plain backward takes the kernels'
@@ -520,63 +611,71 @@ def bn_passes(inputs, epi: str, y_dtype, plain: bool = False, bits=None) -> dict
     place.  Returns y, dx, dweight, dbias, didentity (or None) and the mask."""
     from mm2d3d_tpu_torch.ops.kernels import batchnorm2d as B
 
-    x, weight, bias, ident, rm, rv, dy = inputs
-    fns = ((B.stats_ref, B.apply_ref, B.grad_sums_ref, B.grad_apply_ref) if plain
-           else (B.bn_stats, B.bn_apply, B.bn_grad_sums, B.bn_grad_apply))
-    stats = fns[0](x, weight, rm, rv, 1e-5, 0.9)
-    y, mask = fns[1](x, stats, bias, ident, epi != "none", y_dtype)
+    x, weight, bias, ident, rm, rv, dy, valid = inputs
+    eager_w = None if valid is None else weight
+    if plain:
+        stats = _bn_stats_ref(x, valid, weight, rm, rv, eps)
+        y, mask = B.apply_ref(x, stats, bias, ident, epi != "none", y_dtype, eager_w)
+    else:
+        stats = B.bn_stats(x, weight, rm, rv, eps, 0.9, valid)
+        y, mask = B.bn_apply(x, stats, bias, ident, epi != "none", y_dtype, eager_w)
     used = mask if bits is None else B.unpack_mask(bits, x.shape)
-    coef = fns[2](dy, x, used, stats, weight)
-    dx, did = fns[3](dy, x, used, stats, coef, ident is not None)
+    fns = ((B.grad_sums_ref, B.grad_apply_ref) if plain
+           else (B.bn_grad_sums, B.bn_grad_apply))
+    coef = fns[0](dy, x, used, stats, weight, valid)
+    dx, did = fns[1](dy, x, used, stats, coef, ident is not None, valid)
     return {"y": y, "dx": dx, "dweight": coef[0], "dbias": coef[1], "didentity": did,
             "mask": mask}
 
 
-def bn_run(inputs, epi: str, y_dtype) -> dict:
+def bn_run(inputs, epi: str, y_dtype, eps: float = 1e-5) -> dict:
     """One train-form BatchNorm, forward and backward, through
     `BatchNormTrain` and autograd, from fresh copies of the running
     statistics: `bn_passes`'s outputs but the mask, and the moved running
     statistics."""
     from mm2d3d_tpu_torch.ops.kernels.batchnorm2d import BatchNormTrain
 
-    x, weight, bias, ident, rm, rv, dy = inputs
+    x, weight, bias, ident, rm, rv, dy, valid = inputs
     rm, rv = rm.clone(), rv.clone()
     xg = x.detach().requires_grad_(True)
     wg = weight.clone().requires_grad_(True)
     bg = bias.clone().requires_grad_(True)
     ig = None if ident is None else ident.clone().requires_grad_(True)
-    y = BatchNormTrain.apply(xg, wg, bg, ig, rm, rv, epi != "none", y_dtype, 1e-5, 0.9)
+    y = BatchNormTrain.apply(xg, wg, bg, ig, rm, rv, epi != "none", y_dtype, eps, 0.9,
+                             valid)
     y.backward(dy)
     return {"y": y.detach(), "dx": xg.grad, "dweight": wg.grad, "dbias": bg.grad,
             "didentity": None if ig is None else ig.grad, "running_mean": rm,
             "running_var": rv}
 
 
-def bn_check(inputs, epi: str, y_dtype) -> dict:
-    """The kernels of one BatchNorm call form against the plain versions on
-    the same device.  Raises unless two calls through `BatchNormTrain` give
-    the same bits, the Function gives its four passes' bits, and the ReLU
-    bits agree with the plain mask wherever the plain pre-ReLU value lies
-    beyond 1e-4 * its max (nearer 0 the two roundings may tip it; the
-    plain backward then takes the kernels' bits).  Returns each output's
-    error as a share of its tolerance (`bn_errors`)."""
+def bn_check(inputs, epi: str, y_dtype, eps: float = 1e-5) -> dict:
+    """The kernels of one BatchNorm call form (2D, or masked where the
+    inputs hold a row mask) against the plain versions on the same device.
+    Raises unless two calls through `BatchNormTrain` give the same bits,
+    the Function gives its four passes' bits, and the ReLU bits agree with
+    the plain mask wherever the plain pre-ReLU value lies beyond 1e-4 * its
+    max (nearer 0 the two roundings may tip it; the plain backward then
+    takes the kernels' bits).  Returns each output's error as a share of its
+    tolerance (`bn_errors`)."""
     from mm2d3d_tpu_torch.ops.kernels import batchnorm2d as B
 
-    x, weight, bias, ident, rm, rv, dy = inputs
-    run, again = bn_run(inputs, epi, y_dtype), bn_run(inputs, epi, y_dtype)
+    x, weight, bias, ident, rm, rv, dy, valid = inputs
+    run, again = bn_run(inputs, epi, y_dtype, eps), bn_run(inputs, epi, y_dtype, eps)
     for k, v in run.items():
         if v is not None and not torch.equal(v, again[k]):
             raise AssertionError(f"two calls differ in {k}")
-    fresh = lambda: (x, weight, bias, ident, rm.clone(), rv.clone(), dy)  # noqa: E731
-    out = bn_passes(fresh(), epi, y_dtype)
+    fresh = lambda: (x, weight, bias, ident, rm.clone(), rv.clone(), dy, valid)  # noqa: E731
+    out = bn_passes(fresh(), epi, y_dtype, eps=eps)
     for k, v in out.items():
         if k != "mask" and v is not None and not torch.equal(v, run[k]):
             raise AssertionError(f"BatchNormTrain and its passes differ in {k}")
     plain_in = fresh()
-    ref = bn_passes(plain_in, epi, y_dtype, plain=True, bits=out["mask"])
+    ref = bn_passes(plain_in, epi, y_dtype, plain=True, bits=out["mask"], eps=eps)
     if epi != "none":
-        stats = B.stats_ref(x, weight, rm.clone(), rv.clone(), 1e-5, 0.9)
-        pre = B.apply_ref(x, stats, bias, ident, False, torch.float32)[0]
+        stats = _bn_stats_ref(x, valid, weight, rm.clone(), rv.clone(), eps)
+        pre = B.apply_ref(x, stats, bias, ident, False, torch.float32,
+                          None if valid is None else weight)[0]
         flip = B.unpack_mask(out["mask"], x.shape) != ref["mask"]
         if bool((pre.abs() > 1e-4 * float(pre.abs().max()))[flip].any()):
             raise AssertionError("ReLU bits differ beyond the rounding band")
@@ -597,6 +696,21 @@ def bn_bytes(case) -> int:
     ident = 4 * n if epi == "residual" else 0
     fwd = 2 * n * xs + n * ys + bits + ident
     bwd = 2 * n * ys + 3 * n * xs + 2 * bits + ident
+    return int(fwd + bwd)
+
+
+def masked_bn_bytes(case) -> int:
+    """`bn_bytes` of one masked call form (fp32 x): the statistics read x
+    at the valid rows, the apply and the gradient's sums at every row, dx's
+    apply at the valid rows (a g alone elsewhere); the row mask read by
+    the statistics and by dx's apply."""
+    (v, c), share, epi, y_dtype, _ = case
+    n = v * c
+    ys = torch.finfo(y_dtype).bits // 8
+    bits = n / 8 if epi != "none" else 0
+    ident = 4 * n if epi == "residual" else 0
+    fwd = 4 * n * share + v + 4 * n + n * ys + bits + ident
+    bwd = 2 * n * ys + 4 * n + 4 * n * share + v + 4 * n + 2 * bits + ident
     return int(fwd + bwd)
 
 

@@ -13,11 +13,14 @@ train-mode gradients on the card against the CPU's; host-built
 topologies copied to the card against the card's own build; and the
 train-form BatchNorm kernels against their plain versions at the
 flagship's and KITTI's BatchNorm shapes and at edges, with their launch
-count per BatchNorm and per 2D train step; the sparse convolutions' slot
+count per BatchNorm and per 2D train step, and in the masked form at the 3D
+branches' level shapes (the SCN U-Net's C 16-192, MinkUNet34C's 32-384,
+50-100% of the rows valid), where every row valid gives the 2D form's bits;
+the sparse convolutions' slot
 gather bit for bit against its plain version at the path's shapes (the 5^3
 stem's 125-tap tables at C 3 and 32, a level-3 slot table at Ci 384, fp32,
 channel slices, ids outside the rows), with MinkUNet34C's launches per
-forward and backward.
+forward and backward (the slot gathers' and the masked BatchNorms').
 
 Needs a CUDA device (and nvcc to build the kernels); skips without one.  On
 a machine with a card and no JAX, run it without the repo's conftest.py
@@ -876,7 +879,7 @@ def test_batchnorm2d_refuses_what_it_cannot_take(dev):
                    rv, 1e-5, 0.9)
     stats = B.bn_stats(nhwc, w, rm, rv, 1e-5, 0.9)
     with pytest.raises(TypeError, match="output dtype"):
-        B.bn_apply(nhwc.float(), stats, w, None, True, torch.bfloat16)
+        B.bn_apply(nhwc.float(), stats, w, None, True, torch.float16)
     with pytest.raises(ValueError, match="identity"):
         B.bn_apply(nhwc, stats, w, nhwc, True, torch.float32)
     with pytest.raises(RuntimeError, match="no backward"):
@@ -911,6 +914,76 @@ def test_net2dseg_train_step_launches_batchnorm_kernels(dev, frozen):
     with torch.no_grad():
         net(img, depth, idx, mask, with_features=False)
     assert kernels.counts()["batchnorm2d"] == 0
+
+
+def _masked_bn_case_names():
+    from mm2d3d_tpu_torch.tools.kernel_cases import MASKED_BN_CASES
+
+    return sorted(MASKED_BN_CASES)
+
+
+@pytest.mark.parametrize("name", _masked_bn_case_names())
+def test_masked_batchnorm_matches_plain_version_and_repeats(dev, name):
+    """The masked form at the 3D branches' level shapes, each epilogue and
+    both output dtypes, against the eager masked form's plain versions on
+    the card (`kernel_cases.bn_check`, tolerances as above): the statistics
+    over the valid rows (counted on the card), the apply and the gradient's
+    sums over every row; two calls bit-identical; four launches."""
+    from mm2d3d_tpu_torch.ops import kernels
+    from mm2d3d_tpu_torch.tools.kernel_cases import (
+        MASKED_BN_CASES, bn_check, bn_run, masked_bn_inputs)
+
+    case = MASKED_BN_CASES[name]
+    epi, y_dtype, eps = case[2], case[3], case[4]
+    inputs = masked_bn_inputs(case, dev, seed=11)
+    kernels.reset_counts()
+    bn_run(inputs, epi, y_dtype, eps)
+    torch.cuda.synchronize()
+    assert kernels.counts()["batchnorm2d"] == 4
+    errs = bn_check(inputs, epi, y_dtype, eps)
+    assert max(errs.values()) <= 1.0, errs
+
+
+@pytest.mark.parametrize("epi", ["none", "relu", "residual"])
+def test_masked_batchnorm_with_every_row_valid_is_the_2d_form(dev, epi):
+    """Every row valid: n = M, the same sums in the same order, so the
+    masked kernels give the 2D form's y, gradients and running statistics
+    bit for bit on the same (M, C) rows; no valid row: n clamped to 1, the
+    mean 0, y = x rstd weight + bias, finite gradients."""
+    from mm2d3d_tpu_torch.tools.kernel_cases import bn_run, masked_bn_inputs
+
+    case = ((20000, 96), 1.0, epi, torch.float32, 1e-5)
+    *rest, valid = masked_bn_inputs(case, dev, seed=13)
+    assert bool(valid.all())
+    masked = bn_run((*rest, valid), epi, torch.float32, 1e-5)
+    plain2d = bn_run((*rest, None), epi, torch.float32, 1e-5)
+    for k, v in masked.items():
+        assert (v is None) == (plain2d[k] is None), k
+        if v is not None:
+            assert torch.equal(v, plain2d[k]), k
+    x, weight, bias, _, rm, rv, dy = rest
+    out = bn_run((x, weight, bias, None, rm, rv, dy, torch.zeros_like(valid)), "none",
+                 torch.float32, 1e-5)
+    assert torch.allclose(out["running_mean"], 0.9 * rm)
+    assert torch.allclose(out["y"], x * float(1e-5 ** -0.5) * weight + bias,
+                          rtol=1e-5, atol=1e-3)
+    assert all(torch.isfinite(v).all() for v in out.values() if v is not None)
+
+
+def test_masked_batchnorm_refuses_a_bad_row_mask(dev):
+    from mm2d3d_tpu_torch.ops.kernels import batchnorm2d as B
+
+    x = torch.randn((100, 32), device=dev)
+    w, rm, rv = (torch.ones(32, device=dev), torch.zeros(32, device=dev),
+                 torch.ones(32, device=dev))
+    for bad in (torch.ones(100, dtype=torch.uint8, device=dev),
+                torch.ones(99, dtype=torch.bool, device=dev),
+                torch.ones(200, dtype=torch.bool, device=dev)[::2]):
+        with pytest.raises(ValueError, match="row mask"):
+            B.bn_stats(x, w, rm, rv, 1e-5, 0.9, bad)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        B.bn_stats(x[:, :12].contiguous(), w[:12], rm[:12], rv[:12], 1e-5, 0.9,
+                   torch.ones(100, dtype=torch.bool, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -999,13 +1072,15 @@ def test_slot_gather_edges_and_refusals(dev):
 
 def test_minkunet_gathers_launch_as_kernel_cases_counts(dev):
     """MinkUNet34C's forward and backward on the card launch the slot gather
-    as `kernel_cases.minkunet_gathers` counts, and agree with the CPU's
-    within the card-vs-CPU tolerance of `chip_smoke.py` (1e-3 of the
-    largest, fp32: sums in another order over 55 convolutions)."""
+    as `kernel_cases.minkunet_gathers` counts and the BatchNorm kernels four
+    times per train-form masked BatchNorm (`minkunet_batch_norms`, 62), and
+    agree with the CPU's within the card-vs-CPU tolerance of
+    `chip_smoke.py` (1e-3 of the largest, fp32: sums in another order over
+    55 convolutions and 62 BatchNorms)."""
     from mm2d3d_tpu_torch.data.synthetic import make_batch
     from mm2d3d_tpu_torch.models.minkunet import MinkUNet34CSeg
     from mm2d3d_tpu_torch.ops import kernels
-    from mm2d3d_tpu_torch.tools.kernel_cases import minkunet_gathers
+    from mm2d3d_tpu_torch.tools.kernel_cases import minkunet_batch_norms, minkunet_gathers
     from mm2d3d_tpu_torch.train.batch import build_topology, flatten_points
     from mm2d3d_tpu_torch.train.step import _init_
 
@@ -1027,6 +1102,7 @@ def test_minkunet_gathers_launch_as_kernel_cases_counts(dev):
         if d != "cpu":
             torch.cuda.synchronize()
             assert kernels.counts()["slot_gather"] == sum(minkunet_gathers(hier))
+            assert kernels.counts()["batchnorm2d"] == 4 * minkunet_batch_norms()
         outs[str(d)] = (preds["seg_logit"].detach().to("cpu", copy=True),
                         model.net_3d.conv0p1s1.weight.grad.to("cpu", copy=True))
     (lc, gc), (lg, gg) = outs["cpu"], outs[str(dev)]
